@@ -1,7 +1,7 @@
 """s-step (communication-avoiding) Krylov solves on a sharded Poisson problem.
 
 Per-iteration distributed CG pays one halo exchange + two psum rounds per
-iteration; on a TPU mesh those collective latencies, not bandwidth, bound
+iteration; on a device mesh those collective latencies, not bandwidth, bound
 small-iteration solvers. The CA solvers restructure the same mathematics:
 
   cg_sharded     one K-deep strip exchange + ONE (2s+1)^2 Gram psum per s
@@ -41,7 +41,7 @@ from neptune_tpu.parallel import (
 from neptune_tpu.solvers import cg
 
 N = 128
-DTYPE = "float32"  # the CA paths are f32-first (TPU); honest reporting keeps
+DTYPE = "float32"  # the CA paths are f32-first; honest reporting keeps
 # the claimed residual truthful at this precision
 
 

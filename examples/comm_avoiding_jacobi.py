@@ -6,7 +6,7 @@ trapezoid scheme; see docs/PERFORMANCE.md "Sharded execution").
 The reference has no distributed execution at all (SURVEY.md §2.8); this is
 the scaling pattern its PETSc-on-one-process design cannot express.
 
-Run (single TPU works; to simulate 8 chips on CPU):
+Run (one GPU works; to simulate 8 devices on CPU):
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     python examples/comm_avoiding_jacobi.py --cpu
 """
@@ -123,7 +123,7 @@ def main():
         f"({int(info.iters)} iterations, {K} per exchange), "
         f"true relative residual {rel:.2e}"
     )
-    # f32 (the TPU default) stalls at ~eps*kappa for this conditioning
+    # f32 stalls at ~eps*kappa for this conditioning
     assert rel < (1e-6 if f64 else 1e-2)
     print("ok")
 

@@ -2,8 +2,8 @@
 
     u_t = kappa Lap3(u),  u = 0 on the box boundary
 
-Forward Euler on the 7-point Laplacian (BASELINE config #2's operator; on
-TPU this routes to the rank-3 rolling-window DMA kernel). Validated against
+Forward Euler on the 7-point Laplacian (BASELINE config #2's operator).
+Validated against
 the analytic separable mode
 
     u(x,y,z,t) = sin(pi x) sin(pi y) sin(pi z) exp(-3 kappa pi^2 t)

@@ -2,7 +2,7 @@
 automatic halo exchange, solved by distributed matrix-free CG — the
 capability the single-process reference lacks entirely (SURVEY.md §2.8).
 
-Run (single TPU works; to simulate 8 chips on CPU):
+Run (one GPU works; to simulate 8 devices on CPU):
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     python examples/multichip_poisson.py --cpu
 """

@@ -1,18 +1,18 @@
-"""neptune_tpu — TPU-native stencil-compiler framework for PDE solvers.
+"""neptune_tpu — stencil-compiler framework for PDE solvers on JAX/XLA.
 
-Brand-new JAX/XLA/Pallas implementation with the capabilities of the
+A JAX implementation with the capabilities of the
 `levia-than/neptune-pde-solver` reference (an MLIR stencil DSL + PETSc
 runtime): a Python-traced stencil IR (fields/temps with bounds, grid-location
 and stencil-shape metadata; wrap/unwrap, load/store, apply/access/yield,
 reduce, linear/nonlinear operator definitions, solve and time-advance ops)
-lowering to fused XLA / hand-tiled Pallas kernels, with matrix-free Krylov and
+lowering to fused XLA kernels, with matrix-free Krylov and
 Newton–Krylov solvers replacing PETSc KSP/SNES, and shard_map halo exchange
 for multi-chip meshes.
 
 Layers (bottom-up; see SURVEY.md for the reference mapping):
   neptune_tpu.ir        — types, attrs, ops, verifier, structure keys
   neptune_tpu.passes    — high-level conversion + staged pipeline with dumps
-  neptune_tpu.lowering  — executors: jnp (XLA-fused) and Pallas backends
+  neptune_tpu.lowering  — executor: the jnp lowering XLA compiles
   neptune_tpu.solvers   — CG/BiCGStab/GMRES, Jacobi/SSOR, Newton–Krylov
   neptune_tpu.parallel  — device meshes, sharded fields, halo exchange
   neptune_tpu.frontend  — user DSL: Expr tracing, decorators, jit_class

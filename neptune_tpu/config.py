@@ -8,41 +8,40 @@ single process-wide config object plus per-op attributes on the IR ops, with
 environment-variable overrides.
 
 Environment variables:
-  NEPTUNE_TPU_BACKEND     "auto" | "jnp" | "pallas"   (default "auto")
-  NEPTUNE_TPU_X64         "1" to enable float64 in JAX (tests enable this)
-  NEPTUNE_TPU_CACHE_DIR   persistent compilation cache dir (mirrors the
-                          reference's NEPTUNE_CACHE_DIR, backend.py:15-19)
-  NEPTUNE_TPU_DUMP_IR     "1" to print IR after every pipeline stage
+  NEPTUNE_TPU_BACKEND        "auto" | "jnp"   (default "auto"; the same lowering)
+  NEPTUNE_TPU_X64            "1" to enable float64 in JAX (tests enable this)
+  JAX_COMPILATION_CACHE_DIR  persistent XLA compilation cache dir (default
+                             `<checkout>/.jax_cache`, see setup_persistent_cache)
+  NEPTUNE_TPU_CACHE_DIR      native `.so` cache dir (runtime/aot.py; mirrors the
+                             reference's NEPTUNE_CACHE_DIR, backend.py:15-19)
+  NEPTUNE_TPU_DUMP_IR        "1" to print IR after every pipeline stage
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from pathlib import Path
+
+# Fixed so that every process of one checkout finds the same cache: the
+# directory is part of the cache's key.
+DEFAULT_CACHE_DIR = Path(__file__).resolve().parent.parent / ".jax_cache"
 
 
 @dataclasses.dataclass
 class Config:
-    # Which apply-executor backend to use: "jnp" (pure-XLA reference path),
-    # "pallas" (hand-tiled TPU kernels), or "auto" (pallas where profitable,
-    # falling back to jnp for unsupported shapes/ranks/dtypes).
+    # Apply-executor backend: "jnp" (the XLA lowering) or "auto" (the same).
+    # Anything else raises in CompiledModule.
     backend: str = os.environ.get("NEPTUNE_TPU_BACKEND", "auto")
 
     # Default element dtype for fields when the frontend does not specify one.
     # The reference is f64-only (`NeptuneIRTypes.td` uses f64 throughout its
-    # tests); on TPU f64 runs on the VPU via emulation so f32 is the
-    # performance default, with f64 available for accuracy-critical solves.
+    # tests).
     default_dtype: str = os.environ.get("NEPTUNE_TPU_DTYPE", "float64")
 
     # Print IR after each pipeline stage (the `neptune-opt` single-pass
     # inspection workflow, reference README.md:46-55).
     dump_ir: bool = os.environ.get("NEPTUNE_TPU_DUMP_IR", "0") == "1"
-
-    # Persistent compilation cache directory (None = JAX default handling).
-    cache_dir: str | None = os.environ.get("NEPTUNE_TPU_CACHE_DIR")
-
-    # Interpret Pallas kernels (debugging; maps to pallas_call(interpret=True)).
-    pallas_interpret: bool = os.environ.get("NEPTUNE_TPU_PALLAS_INTERPRET", "0") == "1"
 
     # Pinned-arithmetic reproducibility mode: make GSPMD-sharded solves
     # BITWISE identical across mesh shapes (BASELINE.md "bit-stable
@@ -57,10 +56,9 @@ class Config:
     #     elementwise adds), so the association order is a function of the
     #     global element order only, never of the shard layout.
     # Off by default: the barriers block kernel fusion (extra HBM traffic)
-    # and the pairwise tree costs log2(N) passes vs 1 — see
-    # docs/PERFORMANCE.md for measured cost. jnp/GSPMD paths only; the
-    # shard_map fused paths (ca_*, shardmap_*) are performance paths and
-    # keep default arithmetic.
+    # and the pairwise tree costs log2(N) passes vs 1. jnp/GSPMD paths
+    # only; the shard_map fused paths (ca_*, shardmap_*) are performance
+    # paths and keep default arithmetic.
     pinned_arithmetic: bool = os.environ.get("NEPTUNE_TPU_PINNED", "0") == "1"
 
     # Affine folding: collapse constant-coefficient linear combinations of
@@ -69,9 +67,9 @@ class Config:
     # 4th-order derivative carries divisions and nested multiply chains —
     # 19 elementwise block ops for the advection body — that fold to 8
     # FMAs with exact python-float coefficient arithmetic). Applied
-    # uniformly by every non-pinned lowering (jnp oracle, Pallas kernels,
-    # shard_map locals), so backend-parity comparisons see identical
-    # arithmetic; pinned mode keeps the traced op order untouched.
+    # uniformly by every non-pinned lowering (whole-array and shard_map
+    # locals), so parity comparisons see identical arithmetic; pinned mode
+    # keeps the traced op order untouched.
     fold_affine: bool = os.environ.get("NEPTUNE_TPU_FOLD_AFFINE", "1") == "1"
 
 
@@ -89,18 +87,21 @@ def enable_x64() -> None:
     jax.config.update("jax_enable_x64", True)
 
 
-def setup_persistent_cache() -> None:
-    """Point JAX's persistent compilation cache at config.cache_dir.
+def setup_persistent_cache() -> str:
+    """Turn on JAX's persistent compilation cache; returns its directory:
+    JAX_COMPILATION_CACHE_DIR when set (JAX reads it itself, and no other
+    directory is set here), else `<checkout>/.jax_cache`.
 
-    TPU-native analog of the reference's AOT kernel cache keyed by IR hash
+    The analog of the reference's AOT kernel cache keyed by IR hash
     (`python_frontend/neptune/backend.py:26-87`): XLA keys on HLO hash.
     """
     import jax
 
-    if config.cache_dir:
-        jax.config.update("jax_compilation_cache_dir", config.cache_dir)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    cache = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not cache:
+        cache = str(DEFAULT_CACHE_DIR)
+        jax.config.update("jax_compilation_cache_dir", cache)
+    return cache
 
 
 if os.environ.get("NEPTUNE_TPU_X64", "0") == "1":

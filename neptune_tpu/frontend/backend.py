@@ -6,15 +6,15 @@ returns a ctypes CDLL whose attributes are the compiled entry points. Here the
 analog is: run the lowering pipeline, wrap every traced function in `jax.jit`,
 and return a library object with the same attribute-access surface. Kernel
 caching maps onto JAX's persistent compilation cache (keyed by HLO hash, the
-analog of the reference's SHA-256-of-IR key) — enabled when
-NEPTUNE_TPU_CACHE_DIR is set, mirroring NEPTUNE_CACHE_DIR.
+analog of the reference's SHA-256-of-IR key), set up by
+`config.setup_persistent_cache`.
 """
 
 from __future__ import annotations
 
 import jax
 
-from ..config import config, setup_persistent_cache
+from ..config import setup_persistent_cache
 from .core import GlobalContext, get_context
 
 
@@ -49,6 +49,5 @@ def jit_compile(compiler_instance: GlobalContext | None = None) -> CompiledLibra
     """Compile the context's module; returns a library of jitted functions
     (reference `jit_compile(compiler)`, backend.py:96-98)."""
     ctx = compiler_instance or get_context()
-    if config.cache_dir:
-        setup_persistent_cache()
+    setup_persistent_cache()
     return CompiledLibrary(ctx.compiled())

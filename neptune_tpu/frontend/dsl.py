@@ -396,12 +396,8 @@ def sweeps(op, k: int) -> Callable:
     explicit stepping x <- A x).
 
     The reference runs repeated operator application as k separate kernel
-    launches (one full HBM round trip each); here eligible operators
-    (rank-2 f32 unary non-periodic) lower to the temporal-blocking Pallas
-    kernel (`lowering.pallas_multisweep`) — K sweeps per HBM pass, past the
-    single-sweep bandwidth roofline. Everything else runs a fori_loop of
-    single applies with identical semantics. The returned callable is
-    jittable.
+    launches; here it is a `lax.fori_loop` of single applies with the same
+    semantics. The returned callable is jittable.
     """
     sym = _sym_name(op)
     ctx = get_context()
@@ -428,7 +424,7 @@ def solve_linear(
     """Solve A x = b (reference `dsl.py:70-74`; defaults cg + tol 1e-6).
 
     precision="mixed" runs f32 inner Krylov solves with f64 residual
-    refinement — f64 accuracy at f32 TPU speed (solvers.refine).
+    refinement — f64 accuracy from f32 inner solves (solvers.refine).
     options: per-solve runtime options dict or PETSc-style string, e.g.
     {"restart": 50, "atol": 1e-12, "divtol": 1e5} — the reference's
     per-object PETSc options escape hatch

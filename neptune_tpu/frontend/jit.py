@@ -6,7 +6,7 @@ return value is the runtime context, trace the first-called method into
 `<Cls>_<method>`, AOT-compile to a `.so`, then dispatch via ctypes with the
 context pointer as arg 0.
 
-TPU-native redesign: `__init__` runs **eagerly** (assemble_matrix yields a
+Redesign: `__init__` runs **eagerly** (assemble_matrix yields a
 live lazy MatrixHandle — no separate init function or context pointer is
 needed; the handle is closed over at trace time, replacing the reference's
 dlsym-by-name indirection). Each method is traced once into an IR function on

@@ -188,9 +188,8 @@ class NeptuneBuilder(Builder):
         attrs = {"bounds": bounds, "num_inputs": len(inputs)}
         if periodic:
             # out-of-domain accesses are *specified* to wrap (torus domain);
-            # every backend must honor it (jnp/fused already wrap; the Pallas
-            # multi-copy path wraps its block index maps; the native runtime
-            # uses modular indexing)
+            # every backend must honor it (the jnp lowering rolls; the
+            # native runtime uses modular indexing)
             attrs["periodic"] = True
         op = self.create(
             "neptune.apply",
@@ -218,8 +217,8 @@ class NeptuneBuilder(Builder):
                 and yielded.type.name == res.type.element,
                 f"yield type {yielded.type} != apply element {res.type.element}",
             )
-        # Annotate the access-offset union (feeds structure keys, halo widths,
-        # and Pallas blocking; reference collects the same in
+        # Annotate the access-offset union (feeds structure keys, halo widths
+        # and kernel selection; reference collects the same in
         # VerifyAndAnnotate.cpp:252-266).
         offsets = []
         for inner in op.walk():

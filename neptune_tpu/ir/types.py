@@ -1,6 +1,6 @@
-"""Type system and attributes for the Neptune-TPU stencil IR.
+"""Type system and attributes for the neptune stencil IR.
 
-TPU-native re-design of the NeptuneIR MLIR dialect's types and attributes:
+A re-design of the NeptuneIR MLIR dialect's types and attributes:
 
   * ``Bounds``        — reference `#neptune_ir.bounds<lb=[..], ub=[..]>`
                         (`include/Dialect/NeptuneIR/NeptuneIRAttrs.td:9-26`):
@@ -10,7 +10,7 @@ TPU-native re-design of the NeptuneIR MLIR dialect's types and attributes:
   * ``StencilShape``  — reference `#neptune_ir.stencil_shape`
                         (`NeptuneIRAttrs.td:53-76`): the set of neighbor offsets
                         a stencil touches. Here it additionally drives halo
-                        widths for sharded execution and Pallas block halos.
+                        widths for sharded execution.
   * ``FieldType``     — reference `!neptune_ir.field` (`NeptuneIRTypes.td:12-34`):
                         storage-backed field (buffer semantics).
   * ``TempType``      — reference `!neptune_ir.temp` (`NeptuneIRTypes.td:38-59`):
@@ -125,7 +125,7 @@ class StencilShape:
 
     The reference collects these in VerifyAndAnnotate
     (`lib/Passes/VerifyAndAnnotate.cpp:252-266`) to build structure keys; here
-    they additionally drive halo widths for sharding and Pallas blocking.
+    they additionally drive halo widths for sharding.
     """
 
     offsets: tuple[tuple[int, ...], ...]

@@ -1,6 +1,6 @@
 """Verification + annotation pass.
 
-TPU-native rebuild of the reference's `neptune-ir-verify-annotate` pass
+Rebuild of the reference's `neptune-ir-verify-annotate` pass
 (`lib/Passes/VerifyAndAnnotate.cpp`, pass def `include/Passes/NeptuneIRPasses.td:6-13`):
 
   1. module-level contract checks beyond build-time op checks — opdef signature
@@ -15,7 +15,7 @@ TPU-native rebuild of the reference's `neptune-ir-verify-annotate` pass
      which uses MD5 low 64 bits; we use blake2b) — these key the kernel cache;
   4. symbol-resolution checks (`VerifyAndAnnotate.cpp:375-384`).
 
-New in this build (feeds sharding + Pallas blocking):
+New in this build (feeds sharding):
   5. **reach analysis**: per-opdef effective stencil shape obtained by Minkowski
      composition of apply shapes through the dataflow, attached as
      ``total_shape``; its per-dim halo widths drive shard_map halo exchange.

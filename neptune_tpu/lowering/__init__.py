@@ -1,4 +1,4 @@
-"""Lowering/execution layer: IR -> JAX callables (jnp + Pallas backends)."""
+"""Lowering/execution layer: IR -> JAX callables (the jnp lowering)."""
 
 from .executor import CompiledModule, compile_module
 

@@ -46,41 +46,41 @@ from ..utils import profiling
 from . import jnp_backend
 
 
+# "auto" is the same lowering as "jnp": XLA compiles it for every platform.
+BACKENDS = ("auto", "jnp")
+
+
 class CompiledModule:
     """Executable view of a verified module."""
 
     def __init__(self, module: Module, backend: Optional[str] = None):
         self.module = module
         self.backend = backend or config.backend
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"unknown backend {self.backend!r}: the JAX lowering is "
+                "'jnp' ('auto' is the same); the native C++ oracle is "
+                "neptune_tpu.runtime.compile_native"
+            )
         self._opdef_cache: dict[str, Callable] = {}
         self._structure_cache: dict[int, Callable] = {}
         self._fn_cache: dict[str, Callable] = {}
         self._lo_cm: Optional["CompiledModule"] = None
-        self._jnp_cm: Optional["CompiledModule"] = None
 
     # ------------------------------------------------------------------
     # public entry points
     # ------------------------------------------------------------------
 
-    def opdef(self, name: str, differentiable: bool = False) -> Callable:
+    def opdef(self, name: str) -> Callable:
         """Traced callable for a linear/nonlinear opdef: (*arrays) -> array(s).
 
         Callables are shared between structurally identical opdefs via the
         verifier's structure-key hash — the reference's kernel-cache key
         (`VerifyAndAnnotate.cpp:279-293` MD5 keyHash) applied to avoid
-        re-tracing/re-jitting duplicate operators.
-
-        Differentiation: Pallas-backed callables carry a `jax.custom_jvp`
-        rule that re-derives primal+tangent from the jnp lowering (Pallas
-        kernels have no JVP rule), so `jax.jvp`/`jax.grad` through a plain
-        `opdef()` call — e.g. the JFNK residual in `solvers/newton.py` —
-        works on TPU with no caller opt-in. `differentiable=True` is an
-        explicit escape hatch that returns the jnp-view callable outright
-        (no Pallas primal at all) for callers that want a single lowering
-        under and outside differentiation.
+        re-tracing/re-jitting duplicate operators. `jax.jvp`/`jax.grad`
+        (the JFNK residual in `solvers/newton.py`) differentiate through
+        them.
         """
-        if differentiable and self.backend != "jnp":
-            return self._jnp_view().opdef(name)
         if name not in self._opdef_cache:
             fn = self.module.lookup(name)
             assert fn.is_opdef, f"@{name} is not an opdef"
@@ -88,48 +88,11 @@ class CompiledModule:
             if skey is not None and skey in self._structure_cache:
                 self._opdef_cache[name] = self._structure_cache[skey]
             else:
-                cb = None
-                pallas_live = False
-                if self.backend in ("auto", "pallas"):
-                    from . import pallas_backend, pallas_chain
-
-                    pallas_live = (
-                        pallas_backend._on_tpu() or config.pallas_interpret
-                    )
-                    # composite opdefs whose whole apply DAG fits one
-                    # rolling-window pass run as ONE Pallas kernel (one HBM
-                    # round trip instead of one per stage)
-                    cb = pallas_chain.chain_callable(self.module, name)
-                if cb is None:
-                    cb = self._make_callable(fn)
-                if pallas_live:
-                    cb = self._with_jnp_jvp(name, cb)
+                cb = self._make_callable(fn)
                 self._opdef_cache[name] = cb
                 if skey is not None:
                     self._structure_cache[skey] = cb
         return self._opdef_cache[name]
-
-    def _jnp_view(self) -> "CompiledModule":
-        """A jnp-backend view sharing this module (its own trace caches)."""
-        if self.backend == "jnp":
-            return self
-        if self._jnp_cm is None:
-            self._jnp_cm = CompiledModule(self.module, "jnp")
-        return self._jnp_cm
-
-    def _with_jnp_jvp(self, name: str, cb: Callable) -> Callable:
-        """Attach a custom_jvp that evaluates primal AND tangent via the
-        jnp lowering (whole-array roll/where — ordinary differentiable XLA
-        ops). Pallas kernels have no JVP rule, so without this any
-        `jax.jvp`/`jax.grad` through an opdef call would fail on TPU."""
-        wrapped = jax.custom_jvp(cb)
-
-        @wrapped.defjvp
-        def _jvp(primals, tangents):  # noqa: ANN001
-            return jax.jvp(self._jnp_view().opdef(name), primals, tangents)
-
-        wrapped.__name__ = getattr(cb, "__name__", f"neptune_{name}")
-        return wrapped
 
     def function(self, name: str) -> Callable:
         """Traced callable for a plain function."""
@@ -142,20 +105,9 @@ class CompiledModule:
         return jax.jit(self.function(name), **jit_kwargs)
 
     def sweeps(self, name: str, k: int) -> Callable:
-        """x -> opdef @name applied k times (fixed-point / smoother sweeps).
-
-        Where the reference's runtime replays the operator kernel k times
-        from the KSP Richardson loop (one launch + full HBM round trip per
-        sweep), eligible operators here lower to ONE temporal-blocking
-        Pallas kernel (`pallas_multisweep`): each slab is fetched once with
-        a k*h-deep halo window and relaxed k times VMEM-resident, beating
-        the single-sweep bandwidth roofline by ~k/(1 + k*h/slab); grids
-        that fit VMEM whole (including periodic domains) take the resident
-        variant instead. Ineligible operators (f64, rank not in (2, 3),
-        composite bodies) fall back to a `lax.fori_loop` of single applies.
-        """
-        from . import pallas_backend, pallas_multisweep
-
+        """x -> opdef @name applied k times (fixed-point / smoother sweeps),
+        as a `lax.fori_loop` of single applies — the reference runtime's
+        KSP Richardson replay of the operator kernel."""
         fn = self.module.lookup(name)
         assert fn.is_opdef, f"@{name} is not an opdef"
         n_temps = sum(1 for t in fn.ftype.inputs if isinstance(t, TempType))
@@ -166,38 +118,6 @@ class CompiledModule:
                 f"inputs, {len(fn.ftype.results)} results"
             )
         one = self.opdef(name)
-        k_inner = None
-        if self.backend in ("auto", "pallas") and (
-            pallas_backend._on_tpu() or config.pallas_interpret
-        ):
-            k_inner = pallas_multisweep.best_depth(self.module, name, k)
-        if k_inner is not None:
-            n_scalars = len(fn.ftype.inputs) - 1
-            n_full, rem = divmod(k, k_inner)
-
-            def run_fused(x, *scalars):
-                assert len(scalars) == n_scalars
-
-                def fused(u):
-                    return pallas_multisweep.execute_sweeps(
-                        self.module,
-                        name,
-                        u,
-                        scalars,
-                        k_inner,
-                        interpret=config.pallas_interpret,
-                    )
-
-                u = jnp.asarray(x)
-                if n_full == 1:
-                    u = fused(u)
-                else:
-                    u = jax.lax.fori_loop(0, n_full, lambda _, v: fused(v), u)
-                for _ in range(rem):  # leftover sweeps (rem < k_inner)
-                    u = one(u, *scalars)
-                return u
-
-            return run_fused
 
         def run_loop(x, *scalars):
             return jax.lax.fori_loop(
@@ -376,17 +296,6 @@ class CompiledModule:
         cells[field_value.uid] = arr
 
     def _execute_apply(self, op: Operation, operand_arrays: Sequence):
-        if self.backend == "pallas" or self.backend == "auto":
-            from . import pallas_backend
-
-            result = pallas_backend.try_execute_apply(op, operand_arrays)
-            if result is not None:
-                return result
-            if self.backend == "pallas":
-                raise NotImplementedError(
-                    f"pallas backend cannot lower apply with bounds "
-                    f"{op.attrs['bounds']} (rank/dtype unsupported)"
-                )
         return jnp_backend.execute_apply(op, operand_arrays)
 
     def _handle_for(self, sym: str) -> MatrixHandle:
@@ -460,45 +369,6 @@ class CompiledModule:
                     i=info.inner_iters, rn=info.resnorm, c=info.converged,
                 )
             return x
-        # fully-fused VMEM-resident CG kernel when eligible (f32, rank-2,
-        # fits VMEM, running on TPU) — ~2x over the XLA while_loop path.
-        # Per-solve options (atol/divtol/restart) are honored only by the
-        # generic Krylov path, so their presence routes around the kernel.
-        if (
-            solver == "cg"
-            and not opts
-            and precond in (None, "none", "jacobi")
-            and self.backend in ("auto", "pallas")
-        ):
-            from . import pallas_backend
-            from ..solvers import fused
-
-            if (
-                pallas_backend._on_tpu() or config.pallas_interpret
-            ) and fused.supported(self.module, handle.symbol, handle.temp_type):
-                inv_diag = None
-                if precond == "jacobi":
-                    from ..solvers.precond import safe_inv_diag
-
-                    inv_diag = safe_inv_diag(handle.diagonal())
-                solve_k = fused.fused_cg(
-                    self.module,
-                    handle.symbol,
-                    tol=tol,
-                    maxiter=max_iters,
-                    inv_diag=inv_diag,
-                    interpret=config.pallas_interpret,
-                )
-                x, iters, rn = solve_k(b)
-                if op.attrs.get("verbose") or profiling.verbose_default():
-                    jax.debug.print(
-                        "[neptune] KSP(cg/fused) {n}: iters={i} resnorm={r:.3e}",
-                        n=handle.symbol,
-                        i=iters,
-                        r=rn,
-                    )
-                return x
-
         M = None
         if precond == "mg":
             M = auto_mg_preconditioner(

@@ -1,13 +1,11 @@
 """Pure-jnp apply/reduce execution — the reference dataflow lowering.
 
-This is the TPU rebuild of the reference's `neptune-ir-dataflow-lowering` CPU
+This is the rebuild of the reference's `neptune-ir-dataflow-lowering` CPU
 path (`lib/Passes/DataflowLowering.cpp:258-448`): where the reference emits a
 rank-deep `scf.for` nest with `memref.load` at `iv + offset − input_lb`, here
-each `access` becomes a whole-array shift (`jnp.roll`) and the scalar body is
-evaluated vectorized over the full logical domain — XLA fuses the shifts and
-arithmetic into a single HBM-bandwidth-bound elementwise kernel, which is the
-idiomatic way to hit the stencil roofline on TPU (the hand-tiled alternative
-lives in `pallas_backend`).
+each `access` becomes a whole-array shift (`shift_read`) and the scalar body
+is evaluated vectorized over the full logical domain — XLA fuses the shifts
+and arithmetic into a single HBM-bandwidth-bound elementwise kernel.
 
 Semantics reproduced exactly:
   * storage normalization — logical `[lb, ub)` to 0-based physical arrays
@@ -94,8 +92,7 @@ def shift_read(
     jnp.roll; the rest zero-fill the out-of-range edge instead — those
     positions are unspecified by the apply contract (the copy-through mask
     discards them), and the static slice+pad fuses into the surrounding
-    elementwise stencil on TPU where roll compiles to a standalone relayout
-    pass (measured 41 -> 150 Gcell/s on the sharded 5-pt sweep at 1024^2).
+    elementwise stencil.
     The sharded fused path wraps only UNSHARDED dims of periodic operators:
     sharded dims' local wrap would be globally wrong, so they zero-fill and
     the strip bands recompute their edge zones.
@@ -173,14 +170,15 @@ def eval_scalar_dag(
     pinned: bool | None = None,
 ) -> list:
     """Evaluate an apply region's scalar DAG vectorized, with pluggable
-    access/index resolution (shared between the jnp and Pallas backends).
+    access/index resolution (shared by the whole-array and shard_map
+    lowerings).
 
     access_fn(input_index, offset) -> array of the accessed neighbor values
     index_fn(dim) -> array of logical coordinates along `dim`
     pinned: apply the reproducibility FMA fence to apply-body multiplies.
     None (the jnp/GSPMD path) follows `config.pinned_arithmetic`; the
-    Pallas and shard_map fused callers pass False — they are performance
-    paths and keep default arithmetic by design (`config.py`).
+    shard_map fused callers pass False — they are performance paths and
+    keep default arithmetic by design (`config.py`).
     """
     if pinned is None:
         pinned = config.pinned_arithmetic
@@ -388,28 +386,33 @@ def eval_apply_body(
     return [jnp.broadcast_to(jnp.asarray(y, out_dtype), shape) for y in yielded]
 
 
-import functools
-
-import numpy as _np
-
-
-@functools.lru_cache(maxsize=None)
-def interior_mask(bounds: Bounds, outer: Bounds) -> "_np.ndarray":
-    """Static boolean mask selecting `bounds` inside `outer`'s physical array.
-
-    Built once per (bounds, outer) pair as a trace-time constant. The masked
-    `jnp.where` composition is used instead of `.at[slices].set(...)` for the
-    copy-through write: the select fuses into the stencil elementwise kernel
-    on TPU (no scatter), and it sidesteps an XLA:CPU miscompilation where a
-    dynamic-update-slice whose source aliases the updated operand produces
-    wrong values inside nested fori_loop bodies (observed jax 0.9.0: GMRES
-    Arnoldi vectors corrupted when the operator ended in x.at[sl].set(...)).
-    """
-    m = _np.zeros(outer.shape, dtype=bool)
-    m[tuple(bounds.rel_slices(outer))] = True
-    # cache the NumPy mask, not a jnp array: jnp.asarray under an active jit
-    # trace yields a tracer, and caching a tracer leaks it across traces
+def box_mask(shape, lo, hi) -> jnp.ndarray:
+    """Boolean mask of the box [lo, hi) in an array of `shape`, built from
+    iota compares. A grid-sized NumPy mask would instead become an HLO
+    constant per use (64 MB at 8192^2), which XLA stores and constant-folds
+    through whatever consumes it."""
+    m = None
+    for d in range(len(shape)):
+        iv = jax.lax.broadcasted_iota(jnp.int32, tuple(shape), d)
+        c = (iv >= lo[d]) & (iv < hi[d])
+        m = c if m is None else m & c
     return m
+
+
+def interior_mask(bounds: Bounds, outer: Bounds) -> jnp.ndarray:
+    """Mask selecting `bounds` inside `outer`'s physical array.
+
+    The masked `jnp.where` composition is used instead of
+    `.at[slices].set(...)` for the copy-through write: the select fuses
+    into the stencil's elementwise kernel (no scatter), and it sidesteps an
+    XLA:CPU miscompilation where a dynamic-update-slice whose source aliases
+    the updated operand produces wrong values inside nested fori_loop bodies
+    (observed jax 0.9.0: GMRES Arnoldi vectors corrupted when the operator
+    ended in x.at[sl].set(...)).
+    """
+    lo = tuple(b - o for b, o in zip(bounds.lb, outer.lb))
+    hi = tuple(b - o for b, o in zip(bounds.ub, outer.lb))
+    return box_mask(outer.shape, lo, hi)
 
 
 def execute_apply(op: Operation, operand_arrays: Sequence):

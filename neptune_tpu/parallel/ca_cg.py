@@ -2,7 +2,7 @@
 
 The reference's workhorse KSP solvers are CG/GMRES
 (`/root/reference/lib/Runtime/PETSc/NeptunePETScRuntime.cpp:146-149`); their
-distributed cost on a TPU mesh is dominated by per-iteration collectives —
+distributed cost on a device mesh is dominated by per-iteration collectives —
 two psums (dot products) and one halo exchange per CG iteration. This module
 runs CG in s-step form: per outer step, ONE K-deep strip exchange builds the
 2s+1-vector Krylov basis with the matrix-powers kernel (zero-ghost chains +

@@ -24,7 +24,7 @@ latency win), and the exchanges within a chunk have no serial dependency.
 
 No reference counterpart (the reference has no distributed execution at
 all, SURVEY.md §2.8); the algorithm family is the s-step/CA-Krylov line of
-work, which TPU meshes reward because collective latency, not bandwidth,
+work, which device meshes reward when collective latency, not bandwidth,
 bounds small-iteration solvers.
 """
 

@@ -45,13 +45,12 @@ from .sharded_apply import (
 def _mm(a, b):
     """f32-exact matmul for coefficient-space algebra.
 
-    TPU's default-precision f32 `@` multiplies in bf16 on the MXU (~8
-    mantissa bits); the CA solvers' Gram matrices and coefficient
-    recurrences lose enough bits that residuals stall orders above tol
-    (observed: monomial CA-BiCGStab stuck at 3e-4 vs tol 1e-4, Chebyshev
-    basis NaN). Every Gram/coefficient/recombination matmul pins
-    precision="highest" (3-pass f32 emulation; negligible next to the
-    exchanges). CPU/GPU are unaffected (already f32-exact).
+    A default-precision f32 `@` may multiply at reduced precision (TF32 on
+    NVIDIA tensor cores: ~10 mantissa bits); the CA solvers' Gram matrices
+    and coefficient recurrences lose enough bits that residuals stall
+    orders above tol, or the Chebyshev basis NaNs. Every
+    Gram/coefficient/recombination matmul pins precision="highest"
+    (negligible next to the exchanges).
     """
     return jnp.matmul(a, b, precision="highest")
 
@@ -136,8 +135,8 @@ def run_ca_solver(local_fn, gmesh, spec, b, inv_diag):
 
     The whole local body traces under `default_matmul_precision("highest")`
     so library internals the solvers cannot pin per-call (eigh/lstsq in
-    CA-GMRES's replicated least squares) get f32-exact matmuls on TPU too
-    — see `_mm` for why bf16-multiply precision breaks the recurrences.
+    CA-GMRES's replicated least squares) get f32-exact matmuls too — see
+    `_mm` for why reduced-precision multiplies break the recurrences.
     """
     import jax
 

@@ -93,32 +93,24 @@ def gmres_sharded(
         solver="gmres_sharded", basis=basis, lam_min=lam_min,
         lam_max=lam_max,
     )
-    # Monomial small-s guard (VERDICT r3 weak #6 / ROADMAP numerics
-    # residue): monomial CA-GMRES at s=4 STALLS at ~2e-4 on TPU f32 — an
-    # arithmetic sensitivity of short-restart GMRES to the bf16-free but
-    # still-f32 Gram pipeline (s=6 converges in 618 iters; CPU f32
-    # converges at every s). A user who picks this config would get silent
-    # stagnation (the stall detector exits with converged=False after two
-    # flat cycles, but nothing says WHY), so the config is refused up
-    # front on TPU and warned about elsewhere. Override with
-    # NEPTUNE_ALLOW_MONOMIAL_SMALL_S=1 to experiment anyway.
+    # Monomial small-s guard: short-restart monomial CA-GMRES in f32 is
+    # sensitive to the Gram pipeline's rounding and can stagnate. The stall
+    # detector then exits with converged=False after two flat cycles, but
+    # nothing says WHY, so the config is warned about up front. Silence it
+    # with NEPTUNE_ALLOW_MONOMIAL_SMALL_S=1.
     if (
         basis == "monomial"
         and s <= 4
         and sp.dtype == jnp.float32
         and not os.environ.get("NEPTUNE_ALLOW_MONOMIAL_SMALL_S")
     ):
-        from ..lowering.pallas_backend import _on_tpu
-
-        msg = (
-            f"gmres_sharded(basis='monomial', s={s}) stalls at ~2e-4 on "
-            "TPU f32 arithmetic (measured; docs/ROADMAP.md). Use "
-            "basis='chebyshev' (with lam_min/lam_max), raise s to >= 6, "
-            "or set NEPTUNE_ALLOW_MONOMIAL_SMALL_S=1 to run it anyway."
+        warnings.warn(
+            f"gmres_sharded(basis='monomial', s={s}) can stall in f32 "
+            "arithmetic. Use basis='chebyshev' (with lam_min/lam_max), "
+            "raise s to >= 6, or set NEPTUNE_ALLOW_MONOMIAL_SMALL_S=1 to "
+            "silence this warning.",
+            stacklevel=2,
         )
-        if _on_tpu():
-            raise ValueError(msg)
-        warnings.warn(msg, stacklevel=2)
     rank, names, need, spec = sp.rank, sp.names, sp.need, sp.spec
     outer, dtype, periodic = sp.outer, sp.dtype, sp.periodic
     theta, delta, matvec_block = sp.theta, sp.delta, sp.matvec_block
@@ -187,12 +179,11 @@ def gmres_sharded(
                 # Cholesky NaNs out when the basis degenerates to near
                 # rank-1 — e.g. a near-identity operator — eigh is
                 # NaN-free). The LS itself solves through Householder QR
-                # + one step of iterative refinement, NOT lstsq: TPU's
-                # f32 SVD returns ~60x noisier components in the small-
-                # singular directions than its QR (measured), and with
-                # the Gram now computed at exact f32 precision that SVD
-                # noise entered y every cycle and stalled the solve
-                # orders above tol. Rank deficiency is handled by masking
+                # + one step of iterative refinement, NOT lstsq: an f32
+                # SVD can return much noisier components in the small-
+                # singular directions than QR, and that noise enters y
+                # every cycle and stalls the solve orders above tol.
+                # Rank deficiency is handled by masking
                 # columns whose R diagonal underflows the dtype's
                 # rank tolerance (the trailing basis directions), which
                 # keeps the solve NaN-free where lstsq returned the
@@ -203,9 +194,8 @@ def gmres_sharded(
                     # normalized-Gram eigenvalues below the f32 dot-product
                     # noise floor (~sqrt(N)·eps relative) are pure noise;
                     # keeping them injects that noise into x every cycle
-                    # (measured on v5e: 3400 iters unclamped vs 688 clamped
-                    # on the 256² Poisson bench). The monomial basis is
-                    # ill-conditioned by construction — its small
+                    # and multiplies the iteration count. The monomial basis
+                    # is ill-conditioned by construction — its small
                     # eigenvalues CARRY the trailing Krylov directions, and
                     # clamping them stalls the solve — so it keeps the full
                     # spectrum and relies on the QR solve's accuracy.

@@ -1,9 +1,9 @@
-"""Multi-host (DCN) initialization.
+"""Multi-process initialization.
 
-SURVEY.md §5 prescribes `jax.distributed.initialize` for multi-host slices
-(process groups over DCN; ICI within each host's chips). The GridMesh/GSPMD
-machinery is host-count agnostic — once initialized, `jax.devices()` spans
-the slice and everything else works unchanged.
+SURVEY.md §5 prescribes `jax.distributed.initialize` for multi-host runs
+(one process group over the network). The GridMesh/GSPMD machinery is
+host-count agnostic — once initialized, `jax.devices()` spans every
+process's devices and everything else works unchanged.
 """
 
 from __future__ import annotations
@@ -18,12 +18,9 @@ def initialize_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> int:
-    """Join (or bootstrap) a multi-host JAX runtime. On single-host setups
-    this is a no-op returning the local device count.
-
-    On TPU pods the arguments are auto-detected from the environment; on
-    other clusters pass them explicitly (mirrors jax.distributed.initialize).
-    """
+    """Join (or bootstrap) a multi-process JAX runtime; returns the global
+    device count. Without arguments this is a no-op: the cluster is given
+    explicitly (mirrors jax.distributed.initialize)."""
     try:
         if coordinator_address or num_processes:
             jax.distributed.initialize(
@@ -31,8 +28,6 @@ def initialize_multihost(
                 num_processes=num_processes,
                 process_id=process_id,
             )
-        elif jax.process_count() == 1 and _looks_like_pod():
-            jax.distributed.initialize()
     except RuntimeError as e:
         # calling twice is fine (idempotent join); anything else — bad
         # coordinator, port clash, heartbeat failure — must surface, not
@@ -41,11 +36,3 @@ def initialize_multihost(
             raise
     return len(jax.devices())
 
-
-def _looks_like_pod() -> bool:
-    import os
-
-    return any(
-        k in os.environ
-        for k in ("MEGASCALE_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES")
-    )

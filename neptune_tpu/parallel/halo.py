@@ -1,7 +1,7 @@
-"""Explicit halo exchange over ICI via shard_map + lax.ppermute.
+"""Explicit halo exchange via shard_map + lax.ppermute.
 
-The shard_map path for code XLA's GSPMD partitioner cannot see through —
-notably Pallas stencil kernels. Halo widths come from the stencil-shape reach
+The shard_map path, for per-shard code whose exchange the caller schedules
+itself instead of leaving it to XLA's GSPMD partitioner. Halo widths come from the stencil-shape reach
 analysis (`neptune_tpu.ir.verify`, the metadata the reference models with
 `StencilShapeAttr`, NeptuneIRAttrs.td:53-76).
 

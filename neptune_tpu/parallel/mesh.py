@@ -10,9 +10,9 @@ Two cooperating paths (the scaling-book recipe):
     halo collective-permutes and reduction all-reduces. Used by the jnp
     executor, the Krylov/Newton solvers (whose tdot/psum reductions become
     all-reduces automatically), and the multi-chip dryrun.
-  * **shard_map** (`neptune_tpu.parallel.halo`): explicit per-shard halo
-    exchange via `lax.ppermute` for code the compiler cannot see through
-    (Pallas kernels).
+  * **shard_map** (`neptune_tpu.parallel.halo`, `sharded_apply`, `ca_*`):
+    explicit per-shard halo exchange via `lax.ppermute`, where the exchange
+    schedule is part of the algorithm (fused strips, K-deep ghost zones).
 """
 
 from __future__ import annotations
@@ -29,8 +29,8 @@ class GridMesh:
     """A device mesh aligned with leading grid dimensions.
 
     axis_names[d] shards grid dimension d; trailing grid dims beyond the mesh
-    rank stay replicated (keep the innermost/lane dimension unsharded for
-    TPU layout efficiency).
+    rank stay unsharded, so the innermost (contiguous) dimension keeps whole
+    rows on each device.
     """
 
     def __init__(

@@ -18,17 +18,6 @@ from ..lowering.executor import CompiledModule
 from .mesh import GridMesh
 
 
-def _gspmd_view(cm: CompiledModule) -> CompiledModule:
-    """A jnp-backend view of the module: XLA's partitioner can shard the
-    whole-array lowering (roll/where) automatically, but cannot see inside
-    pallas_call — sharded execution therefore pins the jnp backend. (The
-    shard_map + Pallas fusion lives in parallel.halo.sharded_stencil.)"""
-    # the executor caches one jnp view per module (also used by the
-    # custom_jvp differentiation fallback) — sharing it keeps a single
-    # opdef/structure trace cache instead of re-jitting per view
-    return cm._jnp_view()
-
-
 def sharded_function(
     cm: CompiledModule,
     name: str,
@@ -40,7 +29,6 @@ def sharded_function(
     arg_ranks: rank of each grid argument (None entries = replicated scalar);
     inferred from the function signature when omitted.
     """
-    cm = _gspmd_view(cm)
     fn = cm.function(name)
     irfn = cm.module.lookup(name)
     if arg_ranks is None:
@@ -78,7 +66,6 @@ def sharded_function(
 
 def sharded_opdef(cm: CompiledModule, name: str, gmesh: GridMesh) -> Callable:
     """jit an opdef's matvec with mesh shardings (for distributed Krylov)."""
-    cm = _gspmd_view(cm)
     fn = cm.opdef(name)
     irfn = cm.module.lookup(name)
     ranks = [t.bounds.rank for t in irfn.ftype.inputs]

@@ -8,9 +8,8 @@ global coordinates. The halo depth is the opdef's verified `total_shape`
 reach, so composite operators (apply_linear chains) need exactly one exchange
 per application, not one per stage.
 
-This is the deterministic-communication execution mode (and the substrate the
-Pallas-local multi-chip path will plug into); the jnp local executor is used
-for the per-shard compute.
+This is the deterministic-communication execution mode; the jnp local
+executor is used for the per-shard compute.
 """
 
 from __future__ import annotations
@@ -60,7 +59,6 @@ def _eval_apply_local(
     scalars,
     ext_shape,
     global_start,
-    backend="jnp",
     carve_halo=None,
 ):
     """Evaluate one apply over a halo-extended local block.
@@ -74,10 +72,8 @@ def _eval_apply_local(
     core block), results are computed CORE-shaped directly — every neighbor
     access is a static slice of the aligned-extent core window instead of a
     shape-preserving shift of the ghost-extended (usually tile-misaligned)
-    array. The ext-shaped path forces Mosaic relayouts on every elementwise
-    op (1026-wide blocks at 1024² local size) plus a final carve copy;
-    slicing core-shaped measured 44 -> ~150 Gcell/s on the sharded 5-pt
-    sweep. Only valid when no later stage reads this result's margins.
+    array, which saves the ext-shaped intermediates and the final carve
+    copy. Only valid when no later stage reads this result's margins.
     """
     out_type: TempType = op.results[0].type
     n_in = op.attrs.get("num_inputs", len(op.operands))
@@ -86,22 +82,6 @@ def _eval_apply_local(
     rank = outer.rank
 
     input_lbs = [v.type.bounds.lb for v in op.operands[:n_in]]
-
-    if backend == "pallas" and carve_halo is None:
-        from ..config import config
-        from ..lowering import pallas_backend
-
-        if pallas_backend.window_supported(op, ext_shape) and (
-            pallas_backend._on_tpu() or config.pallas_interpret
-        ):
-            return pallas_backend.execute_apply_window(
-                op,
-                ext_arrays,
-                scalars,
-                ext_shape,
-                global_start,
-                interpret=config.pallas_interpret,
-            )
 
     if carve_halo is not None:
         lo = tuple(h[0] for h in carve_halo)
@@ -200,7 +180,6 @@ def _eval_opdef_local(
     ext_args,
     ext_shape,
     start,
-    backend="jnp",
     carve_halo=None,
 ):
     """Run an opdef body on halo-extended blocks (intermediate results keep
@@ -239,7 +218,6 @@ def _eval_opdef_local(
             scs = [env[o.uid] for o in op.operands[n_in:]]
             final = (
                 carve_halo is not None
-                and backend != "pallas"
                 and all(r.uid not in consumed for r in op.results)
                 and any(r.uid in returned for r in op.results)
             )
@@ -249,7 +227,6 @@ def _eval_opdef_local(
                 scs,
                 ext_shape,
                 start,
-                backend,
                 carve_halo=carve_halo if final else None,
             )
             vals = res if isinstance(res, tuple) else (res,)
@@ -266,7 +243,6 @@ def _eval_opdef_local(
                 [env[o.uid] for o in op.operands],
                 ext_shape,
                 start,
-                backend,
             )
             subs = sub if isinstance(sub, tuple) else (sub,)
             for r, v in zip(op.results, subs):
@@ -631,13 +607,12 @@ def _shardmap_fused(cm, fn, op, gmesh, names, spec, tt, plan) -> Callable:
 
     The halo_pad_local route (ppermute strips concat'd into a ghost-extended
     array) makes the ext array a fusion barrier: XLA materializes it and the
-    carve, tripling HBM traffic (measured 66 Gcell/s at 1024² local blocks).
-    Here the main sweep runs directly on the aligned core block with
-    slice+pad neighbor reads — fully fused, zero-filled shard edges — and
-    the edge bands whose stencils cross shard boundaries are then
-    *recomputed* from thin (O(n·h)) band arrays stitched from the ppermuted
-    strips, and written over the result with dynamic_update_slice (measured
-    125 Gcell/s; pure-pad single-device ceiling ~147).
+    carve, tripling HBM traffic. Here the main sweep runs directly on the
+    aligned core block with slice+pad neighbor reads — fully fused,
+    zero-filled shard edges — and the edge bands whose stencils cross shard
+    boundaries are then *recomputed* from thin (O(n·h)) band arrays stitched
+    from the ppermuted strips, and written over the result with
+    dynamic_update_slice.
 
     Corner values for multi-axis meshes ride the classic two-step exchange:
     dim-d strips are built from the dims<d-extended edge slices (strips of
@@ -676,64 +651,34 @@ def _shardmap_fused(cm, fn, op, gmesh, names, spec, tt, plan) -> Callable:
             # ---- main sweep on the core block (zero-ghost: every cell whose
             # stencil crosses a shard edge is overwritten by a band fixup
             # below, so edge reads may be zeros OR wrap garbage) ----
-            # The slab-blocked Pallas window kernel wins at EVERY size on
-            # TPU (512²: 270 vs 109 Gcell/s; 1024²: 139 vs 97; 4096²: 85 vs
-            # 22 for the XLA jnp chain) — shard_map's jnp lowering cannot keep
-            # loop working set VMEM-resident the way the non-sharded XLA
-            # path does, while pallas_call with the deduped cost estimate
-            # pipelines cleanly. Its pltpu.roll wrap garbage lands only in
-            # band-recomputed or mask-discarded cells. jnp is the fallback
-            # for unsupported cases (f64, tiny grids, off-TPU, periodic).
-            use_window = False
-            if not periodic:
-                from ..config import config
-                from ..lowering import pallas_backend
-
-                if pallas_backend.window_supported(op, nloc) and (
-                    pallas_backend._on_tpu() or config.pallas_interpret
-                ):
-                    use_window = True
-
             def index_fn(d):
                 iv = lax.broadcasted_iota(jnp.int32, nloc, d)
                 return iv + gstart[d]
 
-            if use_window:
-                res = pallas_backend.execute_apply_window(
-                    op,
-                    [jnp.asarray(a, dtype) for a in inputs_loc],
-                    scalars_rt,
-                    nloc,
-                    gstart,
-                    interpret=config.pallas_interpret,
+            def access_fn(k, offset):
+                return jnp_backend.shift_read(
+                    inputs_loc[k], adj_of(k, offset), wrap
                 )
-                outs = list(res) if isinstance(res, tuple) else [res]
-            else:
 
-                def access_fn(k, offset):
-                    return jnp_backend.shift_read(
-                        inputs_loc[k], adj_of(k, offset), wrap
+            ys = jnp_backend.eval_scalar_dag(
+                op.region(0), rank, n_in, access_fn, index_fn, scalars_rt, pinned=False
+            )
+            outs = []
+            for j, y in enumerate(ys):
+                y = jnp.broadcast_to(jnp.asarray(y, dtype), nloc)
+                if not full_domain:
+                    mask = None
+                    for d in range(rank):
+                        iv = index_fn(d)
+                        m = (iv >= bounds.lb[d]) & (iv < bounds.ub[d])
+                        mask = m if mask is None else (mask & m)
+                    seed = (
+                        inputs_loc[j].astype(dtype)
+                        if j < n_in
+                        else jnp.zeros(nloc, dtype)
                     )
-
-                ys = jnp_backend.eval_scalar_dag(
-                    op.region(0), rank, n_in, access_fn, index_fn, scalars_rt, pinned=False
-                )
-                outs = []
-                for j, y in enumerate(ys):
-                    y = jnp.broadcast_to(jnp.asarray(y, dtype), nloc)
-                    if not full_domain:
-                        mask = None
-                        for d in range(rank):
-                            iv = index_fn(d)
-                            m = (iv >= bounds.lb[d]) & (iv < bounds.ub[d])
-                            mask = m if mask is None else (mask & m)
-                        seed = (
-                            inputs_loc[j].astype(dtype)
-                            if j < n_in
-                            else jnp.zeros(nloc, dtype)
-                        )
-                        y = jnp.where(mask, y, seed)
-                    outs.append(y)
+                    y = jnp.where(mask, y, seed)
+                outs.append(y)
 
             # ---- strip exchange (per input, per sharded dim, in order) ----
             strips, ext_slice, sharded_dims = _strip_exchange(
@@ -859,16 +804,9 @@ def _shardmap_fused_composite(
     edge bands are recomputed by running the SAME chain on thin
     strip-stitched bands of every argument — the k=1 trapezoid with "one
     sweep = the whole operator body". This avoids materializing the
-    ghost-extended block (a fusion barrier that tripled HBM traffic; see
-    docs/PERFORMANCE.md).
-
-    Main-chain kernels: on TPU each stage apply routes through the
-    slab-blocked Pallas window kernel when supported (same preference as
-    the single-apply fused path — shard_map's jnp lowering cannot keep the
-    chain's working set VMEM-resident; each stage's window wrap/clamp edge
-    garbage lands inside the composed-reach zone the bands recompute).
-    The thin band replays stay jnp. Trailing scalar opdef args are
-    replicated and flow through both chain evaluations.
+    ghost-extended block (a fusion barrier that triples HBM traffic).
+    Trailing scalar opdef args are replicated and flow through both chain
+    evaluations.
     """
     rank = tt.bounds.rank
     n_fields = _scalar_args_trailing(fn)
@@ -881,32 +819,11 @@ def _shardmap_fused_composite(
             nloc = flocs[0].shape
             gstart = _gstart(nloc, rank, names, outer)
 
-            # main: the whole chain, zero-ghost, on the cores. On TPU the
-            # whole flattened DAG runs as ONE rolling-window Pallas pass
-            # (lowering/pallas_chain, intermediates VMEM-resident, one HBM
-            # round trip for the chain); per-stage window kernels are the
-            # next preference, jnp the fallback. Chain-window wrap/clamp
-            # edge garbage lands inside the composed-reach zones the bands
-            # recompute — same contract as the per-stage windows.
-            from ..config import config
-            from ..lowering import pallas_backend, pallas_chain
-
-            on_tpu = pallas_backend._on_tpu() or config.pallas_interpret
-            main_backend = "pallas" if on_tpu else "jnp"
-            cplan = (
-                pallas_chain.chain_plan(cm.module, fn.name, tuple(nloc))
-                if on_tpu
-                else None
+            # main: the whole chain, zero-ghost, on the cores; edge garbage
+            # lands inside the composed-reach zones the bands recompute
+            out = _eval_opdef_local(
+                cm.module, fn.name, list(locs), nloc, gstart
             )
-            if cplan is not None:
-                out = pallas_chain.execute_chain(
-                    cplan, flocs, slocs, global_start=gstart,
-                    interpret=config.pallas_interpret,
-                )
-            else:
-                out = _eval_opdef_local(
-                    cm.module, fn.name, list(locs), nloc, gstart, main_backend
-                )
             outs = list(out) if isinstance(out, tuple) else [out]
 
             strips, ext_slice, sharded_dims = _strip_exchange(
@@ -916,7 +833,7 @@ def _shardmap_fused_composite(
             def replay(band_args, zone):
                 bout = _eval_opdef_local(
                     cm.module, fn.name, band_args + slocs,
-                    band_args[0].shape, list(zone.bases), "jnp",
+                    band_args[0].shape, list(zone.bases),
                 )
                 return list(bout) if isinstance(bout, tuple) else [bout]
 
@@ -959,16 +876,15 @@ class RoutePlan(NamedTuple):
     fused: object  # (need, scalar_vals, ret_index, arg_order) or None
 
 
-def plan_opdef(cm, name: str, gmesh: GridMesh, backend: str = "jnp") -> RoutePlan:
+def plan_opdef(cm, name: str, gmesh: GridMesh) -> RoutePlan:
     """Select the sharded execution route for opdef @name on gmesh.
 
     Route preference (same order the reference's runtime-lowering picks its
     dispatch, `/root/reference/lib/Transform/RuntimeLowering.cpp` — here
     re-decided for shard_map): single-apply opdefs whose reach fits one
     shard take the fused strip-exchange path; eligible composite chains take
-    the composite fused path; everything else (periodic wrap under forced
-    pallas, reach > shard, interleaved scalars rejected earlier) falls back
-    to the ghost-extended-block path.
+    the composite fused path; everything else (reach > shard, periodic
+    composites) falls back to the ghost-extended-block path.
     """
     fn = cm.module.lookup(name)
     halo = fn.attrs.get("halo")
@@ -990,24 +906,19 @@ def plan_opdef(cm, name: str, gmesh: GridMesh, backend: str = "jnp") -> RoutePla
     names = list(gmesh.axis_names[:rank]) + [None] * (rank - len(gmesh.axis_names))
     spec = gmesh.pspec(rank)
 
-    if backend in ("jnp", "pallas"):
-        apply_op = _single_apply(fn)
-        if apply_op is not None:
-            plan = _fused_plan(fn, apply_op, gmesh, names, tt)
-            if plan is not None and not (
-                backend == "pallas" and _opdef_periodic(cm.module, name)
-            ):
-                return RoutePlan(
-                    "fused-strip", fn, halo, names, spec, tt, n_fields,
-                    None, apply_op, plan,
-                )
-        elif backend == "jnp" and _composite_fused_ok(
-            cm, fn, gmesh, names, tt, halo
-        ):
+    apply_op = _single_apply(fn)
+    if apply_op is not None:
+        plan = _fused_plan(fn, apply_op, gmesh, names, tt)
+        if plan is not None:
             return RoutePlan(
-                "fused-composite", fn, halo, names, spec, tt, n_fields,
-                False, None, None,
+                "fused-strip", fn, halo, names, spec, tt, n_fields,
+                None, apply_op, plan,
             )
+    elif _composite_fused_ok(cm, fn, gmesh, names, tt, halo):
+        return RoutePlan(
+            "fused-composite", fn, halo, names, spec, tt, n_fields,
+            False, None, None,
+        )
 
     periodic = _opdef_periodic(cm.module, name)
     return RoutePlan(
@@ -1016,11 +927,11 @@ def plan_opdef(cm, name: str, gmesh: GridMesh, backend: str = "jnp") -> RoutePla
     )
 
 
-def plan_report(cm, name: str, gmesh: GridMesh, backend: str = "jnp") -> str:
+def plan_report(cm, name: str, gmesh: GridMesh) -> str:
     """Deterministic textual dump of the sharded execution plan — the
     sharded analog of the pipeline stage dumps, pinned byte-for-byte by
     `tests/golden/sharded_*_plan.txt`."""
-    rp = plan_opdef(cm, name, gmesh, backend)
+    rp = plan_opdef(cm, name, gmesh)
     tt, rank = rp.tt, rp.tt.bounds.rank
     grid = "x".join(str(s) for s in tt.bounds.shape)
     mesh = " ".join(
@@ -1067,22 +978,16 @@ def plan_report(cm, name: str, gmesh: GridMesh, backend: str = "jnp") -> str:
     return "\n".join(lines) + "\n"
 
 
-def shardmap_opdef(
-    cm, name: str, gmesh: GridMesh, backend: str = "jnp"
-) -> Callable:
+def shardmap_opdef(cm, name: str, gmesh: GridMesh) -> Callable:
     """Explicit-communication sharded matvec for opdef @name.
 
     cm: a CompiledModule over a *verified* module (halo annotations present).
     Single-apply opdefs take the fused strip-exchange path
-    (`_shardmap_fused`); composite operators use the ghost-extended-block
-    path. backend="jnp" (default) picks the main-sweep kernel by core size
-    (fused XLA chain at VMEM scale, Pallas window kernel at HBM scale);
-    backend="pallas" forces the Pallas window kernel at every size
-    (periodic ops and non-fusable cases fall back to the extended-block
-    window path). Returns a jittable global function over mesh-sharded
-    arrays.
+    (`_shardmap_fused`); eligible composite operators the fused composite
+    path; the rest the ghost-extended-block path (`plan_opdef`). Returns a
+    jittable global function over mesh-sharded arrays.
     """
-    rp = plan_opdef(cm, name, gmesh, backend)
+    rp = plan_opdef(cm, name, gmesh)
     fn, halo, names, spec, tt = rp.fn, rp.halo, rp.names, rp.spec, rp.tt
     rank = tt.bounds.rank
     n_fields = rp.n_fields
@@ -1120,7 +1025,6 @@ def shardmap_opdef(
                 exts,
                 ext_shape,
                 start,
-                backend,
                 carve_halo=halo,
             )
 
@@ -1140,15 +1044,8 @@ def shardmap_opdef(
     return global_fn
 
 
-def shardmap_sweeps(
-    cm, name: str, gmesh: GridMesh, k: int, backend: str = "auto"
-) -> Callable:
+def shardmap_sweeps(cm, name: str, gmesh: GridMesh, k: int) -> Callable:
     """K fused relaxation sweeps per halo exchange (communication-avoiding).
-
-    backend: "auto" (default) routes the main K-loop by core size
-    (multisweep window kernel > per-sweep window kernel > fused XLA jnp);
-    "jnp" forces the pure-XLA chain (e.g. to compare, or to rule the Pallas
-    kernels out of a numerical repro).
 
     The sharded analog of `cm.sweeps(name, k)`: instead of K alternating
     (exchange, sweep) rounds, each call exchanges K-deep ghost strips ONCE
@@ -1174,10 +1071,6 @@ def shardmap_sweeps(
     """
     if k < 1:
         raise ValueError("k must be >= 1")
-    if backend not in ("auto", "jnp"):
-        raise ValueError(
-            f"shardmap_sweeps backend must be 'auto' or 'jnp' (got {backend!r})"
-        )
     fn = cm.module.lookup(name)
     halo = fn.attrs.get("halo")
     if halo is None:
@@ -1257,42 +1150,9 @@ def shardmap_sweeps(
                 return y
 
             # ---- main: K zero-ghost sweeps on the core ----
-            # main-sweep preference (any size; measured on TPU): (1) the
-            # K-fused multisweep window kernel (one HBM pass for all K
-            # sweeps — its clamp/roll edge garbage creeps exactly K*reach,
-            # the band-recomputed zone); (2) K single-sweep window-kernel
-            # calls; (3) the fused XLA jnp chain (fallback: f64, tiny
-            # grids, off-TPU, periodic, or a forced 'jnp' backend).
-            y = None
-            if backend == "auto" and not periodic:
-                from ..config import config
-                from ..lowering import pallas_backend, pallas_multisweep
-
-                on_pl = pallas_backend._on_tpu() or config.pallas_interpret
-                if on_pl and pallas_multisweep.local_window_plan(op, nloc, k):
-                    y = pallas_multisweep.execute_sweeps_window_local(
-                        op,
-                        jnp.asarray(xl, dtype),
-                        scalars_rt,
-                        k,
-                        gstart,
-                        interpret=config.pallas_interpret,
-                    )
-                elif on_pl and pallas_backend.window_supported(op, nloc):
-                    y = jnp.asarray(xl, dtype)
-                    for _ in range(k):
-                        y = pallas_backend.execute_apply_window(
-                            op,
-                            [y],
-                            scalars_rt,
-                            nloc,
-                            gstart,
-                            interpret=config.pallas_interpret,
-                        )
-            if y is None:
-                y = xl
-                for _ in range(k):
-                    y = sweep_block(y, gstart, nloc)
+            y = xl
+            for _ in range(k):
+                y = sweep_block(y, gstart, nloc)
 
             # ---- K-deep strip exchange (strips of strips for corners) ----
             need_k = [(k * lo, k * hi) for lo, hi in need]

@@ -3,7 +3,7 @@ behind `solve_linear(..., precond="mg")`.
 
 The reference reaches multigrid only through PETSc's options DB (`-pc_type`
 family, `lib/Runtime/PETSc/NeptunePETScRuntime.cpp:139-150`), where PETSc
-owns the coarse-grid construction. The TPU build's analog re-instantiates
+owns the coarse-grid construction. This build re-instantiates
 the *user's own stencil body* at halved bounds: the apply DAG (offsets +
 scalar constants) is grid-size independent, so cloning every referenced
 opdef with

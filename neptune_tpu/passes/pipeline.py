@@ -1,6 +1,6 @@
 """The staged lowering pipeline with per-stage IR dumps.
 
-TPU analog of the reference's `neptuneir-to-llvm` pipeline
+Analog of the reference's `neptuneir-to-llvm` pipeline
 (`lib/Pipeline/NeptuneIRPassesPipeline.cpp:5-53`):
 
     reference                          this build
@@ -11,8 +11,7 @@ TPU analog of the reference's `neptuneir-to-llvm` pipeline
                                        (lowering.executor, done lazily)
     neptune-ir-runtime-lowering    ->  solver-op dispatch into solvers/
                                        (lowering.executor)
-    neptune-ir-dataflow-lowering   ->  apply -> jnp / Pallas
-                                       (lowering.jnp_backend / pallas_backend)
+    neptune-ir-dataflow-lowering   ->  apply -> jnp (lowering.jnp_backend)
     LLVM codegen + AOT cache       ->  jax.jit + persistent XLA cache
 
 Each stage records an IR dump, preserving the reference's `neptune-opt`

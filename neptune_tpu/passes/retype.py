@@ -1,7 +1,7 @@
 """Module retyping: swap the element dtype of every grid type.
 
-Enables mixed-precision execution on TPU (SURVEY.md §7 hard part (e): f64 is
-VPU-emulated and slow; f32 feeds the vector units at full rate). The
+Enables mixed-precision execution (SURVEY.md §7 hard part (e): f64 is
+slower than f32 on most accelerators). The
 iterative-refinement solver (`solvers.refine`) runs the *same operator* at
 float32 for the inner Krylov solves and float64 for residual evaluation —
 this pass produces the low-precision twin of a module.

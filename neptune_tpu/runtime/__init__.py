@@ -5,7 +5,7 @@ The native analog of the reference's compiled-kernel + PETSc-runtime path
 stencil applies compile to C++ loop nests, solver ops call the
 libneptune_rt Krylov/Newton implementations, modules cache as shared
 objects keyed by source hash and load through ctypes. Serves as the
-double-precision host oracle and a TPU-free fallback executor.
+double-precision host oracle, chosen explicitly (never as a fallback).
 """
 
 from .aot import NativeCompiledModule, compile_native

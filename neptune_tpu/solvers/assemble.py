@@ -89,12 +89,10 @@ class MatrixHandle:
         outer = self.temp_type.bounds
         if self.interior == outer:
             return None
-        import numpy as _np
+        from ..lowering.jnp_backend import interior_mask
 
-        ring = _np.ones(self.grid_shape, bool)
-        sl = self.interior.rel_slices(outer)
-        ring[sl] = False
-        return jnp.where(jnp.asarray(ring), b, jnp.zeros_like(b))
+        inner = interior_mask(self.interior, outer)
+        return jnp.where(inner, jnp.zeros_like(b), b)
 
     def diagonal(self) -> jnp.ndarray:
         """Exact diagonal via stencil-period probing (see solvers.precond)."""

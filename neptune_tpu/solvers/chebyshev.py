@@ -1,10 +1,10 @@
-"""Chebyshev iteration — the reduction-free solver/smoother for TPU meshes.
+"""Chebyshev iteration — the reduction-free solver/smoother for device meshes.
 
 No reference counterpart (PETSc exposes `-ksp_type chebyshev` but the
 reference's DSL surfaces only cg/gmres/bicgstab,
 `include/Dialect/NeptuneIR/NeptuneIROps.td:646-684`). It earns its place in
-the TPU build: every CG/GMRES iteration needs inner products, which on a
-sharded mesh become `psum` all-reduces — a per-iteration ICI latency floor.
+this build: every CG/GMRES iteration needs inner products, which on a
+sharded mesh become `psum` all-reduces — a per-iteration latency floor.
 Chebyshev's recurrence needs NO inner products: each iteration is one
 matvec (stencil + halo exchange) plus axpys, so a sharded solve runs with
 zero global collectives in the loop (`check_every=0` does a single residual
@@ -12,7 +12,7 @@ reduction at the very end). The price is needing spectrum bounds
 [lam_min, lam_max] of the (preconditioned) SPD operator, estimated here by
 one-time power iterations when not supplied.
 
-Also the natural multigrid smoother on TPU (`multigrid_solve(...,
+Also the natural multigrid smoother on a mesh (`multigrid_solve(...,
 smoother="cheb")` territory): fixed-k Chebyshev smoothing targets the upper
 part of the spectrum [lam_max/alpha, lam_max] without any reductions.
 """

@@ -1,6 +1,6 @@
 """Matrix-free Krylov solvers: CG, BiCGStab, restarted GMRES.
 
-TPU-native replacement for the reference's PETSc KSP runtime
+Replacement for the reference's PETSc KSP runtime
 (`lib/Runtime/PETSc/NeptunePETScRuntime.cpp:112-419`): where PETSc wraps the
 compiled stencil kernel in a MatShell and calls it back through dlsym per
 iteration (`:182-230`), here the operator is a traced JAX callable closed over

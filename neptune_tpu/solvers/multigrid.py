@@ -2,7 +2,7 @@
 
 Parity target: the reference's PETSc runtime exposes multigrid through KSP's
 preconditioner zoo (PCMG; `runtime/NeptunePETScRuntime.cpp` configures KSP/PC
-from solver attrs). Rebuilt here TPU-first instead of wrapping PETSc:
+from solver attrs). Rebuilt here instead of wrapping PETSc:
 
   * every level's operator is a matrix-free stencil callable (typically a
     `MatrixHandle` from `assemble_matrix` of the same operator re-discretized
@@ -33,9 +33,9 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import jax
-import numpy as np
 import jax.numpy as jnp
 
+from ..lowering.jnp_backend import box_mask
 from .krylov import SolveInfo
 from .precond import extract_diagonal, safe_inv_diag
 
@@ -101,26 +101,22 @@ def build_levels(
             if rings is not None
             else max((max(h) for h in halo), default=1)
         )
-        idx = np.ones(shape, bool)
-        for d in range(like.ndim):
-            iv = np.arange(shape[d])
-            m = (iv >= ring) & (iv < shape[d] - ring)
-            idx = idx & m.reshape((1,) * d + (-1,) + (1,) * (like.ndim - d - 1))
+        idx = box_mask(shape, (ring,) * like.ndim, tuple(s - ring for s in shape))
 
         # lam_max of the Jacobi-preconditioned operator D^-1 A (drives the
         # "cheb" smoother's target interval [lmax/4, lmax]); one-time jitted
         # power iteration per level
         from .chebyshev import power_method
 
-        seed_vec = jnp.asarray(
-            np.random.default_rng(12345).standard_normal(shape), like.dtype
-        )
+        # generated on the device: a host-made seed would be a grid-sized
+        # constant under an enclosing jit
+        seed_vec = jax.random.normal(jax.random.key(12345), shape, like.dtype)
         lmax = jax.jit(
             lambda pb, iv=inv_diag, mv=mv: power_method(
                 mv, pb, iters=20, M=lambda v: iv * v
             )
         )(seed_vec) * 1.1
-        levels.append(MGLevel(mv, inv_diag, jnp.asarray(idx), lmax))
+        levels.append(MGLevel(mv, inv_diag, idx, lmax))
         shape = tuple(s // 2 for s in shape)
     return levels
 
@@ -183,7 +179,7 @@ def v_cycle(
     (one matvec per degree like Jacobi but with the optimal-polynomial
     damping of the upper spectrum; fixed degree + fixed bounds keep the
     cycle a LINEAR operator, so it remains a valid CG preconditioner, and
-    it is reduction-free — the TPU-mesh-native choice).
+    it is reduction-free — the natural choice on a device mesh).
     """
     if smoother not in ("rb", "jacobi", "cheb"):
         raise ValueError(

@@ -6,7 +6,7 @@ residual-only JFNK: SNESNEWTONLS with finite-difference matrix-free J·v
 1450-1452`), calling the dlsym'd compiled residual once per function
 evaluation (`NL<Rank,Caps>::FormFunction`, `:897-1426`).
 
-TPU-native upgrade: J·v is the **exact** jacobian-vector product via
+Upgrade: J·v is the **exact** jacobian-vector product via
 `jax.jvp` on the traced residual (no finite-difference noise), the inner
 solve is our matrix-free GMRES, and an Armijo backtracking line search
 replaces SNESNEWTONLS's cubic line search. States are pytrees, so

@@ -18,6 +18,7 @@ from __future__ import annotations
 import itertools
 from typing import Callable, Sequence
 
+import jax
 import jax.numpy as jnp
 import jax.scipy.linalg as jsp
 import numpy as np
@@ -46,14 +47,17 @@ def extract_diagonal(
     if len(periods) != len(shape):
         periods = [max(periods)] * len(shape)
 
-    # Build the probe masks once with NumPy (static, pre-jit constants).
-    grids = np.ogrid[tuple(slice(0, s) for s in shape)]
+    # Probe masks from iota, not NumPy: a grid-sized NumPy mask becomes an
+    # HLO constant that XLA then constant-folds through the operator at
+    # compile time (minutes at 8192^2).
+    grids = [jax.lax.broadcasted_iota(jnp.int32, shape, d) for d in range(len(shape))]
     diag = jnp.zeros_like(like)
     for combo in itertools.product(*[range(p) for p in periods]):
-        mask_np = np.ones(shape, dtype=bool)
+        hit = None
         for g, c, p in zip(grids, combo, periods):
-            mask_np &= (g % p) == c
-        probe = jnp.asarray(mask_np, like.dtype)
+            m = (g % p) == c
+            hit = m if hit is None else hit & m
+        probe = hit.astype(like.dtype)
         diag = diag + probe * matvec(probe)
     return diag
 
@@ -89,8 +93,8 @@ def ssor_stencil(
     """Matrix-free red-black SSOR: M^{-1} r applied with two operator
     sweeps and the probed diagonal — no assembled matrix at any size
     (the round-3 `ssor_dense` capped SSOR at toy grids; BASELINE's north
-    star names "Jacobi/SSOR preconditioners that apply the same Pallas
-    stencil operators", and this is that). Reference analog: PETSc's
+    star names "Jacobi/SSOR preconditioners that apply the same stencil
+    operators", and this is that). Reference analog: PETSc's
     `-pc_type sor -pc_sor_symmetric` reachable through the options DB
     (`NeptunePETScRuntime.cpp:139-150`).
 

@@ -1,7 +1,7 @@
 """Mixed-precision iterative refinement — f64 accuracy at f32 compute rates.
 
-TPU f64 is VPU-emulated and several times slower than f32 (SURVEY.md §7 hard
-part (e)). Classic iterative refinement sidesteps it: run the Krylov solve in
+f64 is slower than f32 on most accelerators (SURVEY.md §7 hard part (e)).
+Classic iterative refinement sidesteps it: run the Krylov solve in
 float32 against the float32 twin of the operator (passes.retype), evaluate
 residuals and accumulate the solution in float64, repeat until the f64
 residual meets tolerance. Each refinement round recovers ~6-7 digits, so 2-3

@@ -1,7 +1,7 @@
 """Whole-simulation time loops under one jit.
 
 The reference steps time from Python, paying a ctypes call + PETSc setup per
-step (`jit.py:128-149` dispatch loop). TPU-native equivalent: roll the step
+step (`jit.py:128-149` dispatch loop). Here: roll the step
 function into `lax.scan` so an entire N-step simulation (each step possibly
 containing a full Krylov/Newton solve) is ONE XLA executable — no host
 round-trips, and XLA pipelines/fuses across steps where legal.

@@ -67,12 +67,6 @@ def main(argv=None) -> int:
         help="execute --run on the native C++ runtime instead of JAX",
     )
     ap.add_argument(
-        "--backend",
-        default=None,
-        choices=["auto", "jnp", "pallas"],
-        help="apply-executor backend for --jaxpr/--hlo",
-    )
-    ap.add_argument(
         "--plan",
         metavar="MESH",
         help="print the sharded execution plan of every opdef over a device "
@@ -149,7 +143,7 @@ def main(argv=None) -> int:
                 for a in irfn.body.args
             ):
                 jax.config.update("jax_enable_x64", True)
-            out = pr.compiled(args.backend).function(args.run)(*example)
+            out = pr.compiled().function(args.run)(*example)
         outs = out if isinstance(out, tuple) else (out,)
         for j, o in enumerate(outs):
             o = np.asarray(o)
@@ -170,7 +164,7 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 1
         gm = GridMesh(mesh_shape, abstract=True)
-        cm = pr.compiled(args.backend)
+        cm = pr.compiled()
         for fn in pr.module.opdefs():
             print(f"// ----- sharded plan of @{fn.name} on mesh {args.plan} -----")
             try:
@@ -190,7 +184,7 @@ def main(argv=None) -> int:
         ):
             jax.config.update("jax_enable_x64", True)
 
-        cm = pr.compiled(args.backend)
+        cm = pr.compiled()
         name = args.jaxpr or args.hlo
         fn = cm.function(name)
         irfn = cm.module.lookup(name)

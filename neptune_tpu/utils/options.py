@@ -1,7 +1,7 @@
 """Per-solve runtime options — the reference's PETSc options-string escape
 hatch (`lib/Runtime/PETSc/NeptunePETScRuntime.cpp:139-150, 284-298, 1465-1472`
 lets callers inject e.g. "-ksp_gmres_restart 50 -ksp_atol 1e-12" per solver
-object). The TPU build's equivalent: a typed options dict (or a PETSc-style
+object). This build's equivalent: a typed options dict (or a PETSc-style
 string) attached to `solve_linear` / `solve_nonlinear` / `time_advance` IR
 ops, validated against a per-solver-class whitelist and threaded into the
 Krylov / Newton solvers, with env-var defaults

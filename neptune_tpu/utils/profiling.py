@@ -28,7 +28,7 @@ def verbose_default() -> bool:
 def report_solve(kind: str, name: str, info) -> None:
     """Print one KSP/SNES-style convergence line from (possibly traced) code.
 
-    Works under jit via jax.debug.print — the TPU answer to the reference's
+    Works under jit via jax.debug.print — the answer to the reference's
     host-side printf after KSPSolve.
     """
     jax.debug.print(

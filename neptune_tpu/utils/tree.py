@@ -1,7 +1,7 @@
 """Pytree vector-space utilities for matrix-free solvers.
 
 The reference's PETSc runtime works on flat `Vec` buffers packed from strided
-memrefs (`lib/Runtime/PETSc/NeptunePETScRuntime.cpp:897-1426`). The TPU-native
+memrefs (`lib/Runtime/PETSc/NeptunePETScRuntime.cpp:897-1426`). The JAX
 equivalent keeps grid-shaped (and multi-field tuple) states as JAX pytrees and
 performs vector-space algebra leaf-wise — XLA fuses these into the surrounding
 solver iteration, and multi-field nonlinear states (the
@@ -60,7 +60,7 @@ def _fma_fence(v):
     """Materialize `v`'s rounding so no consumer add can contract `v`'s
     producing multiply into an FMA (layout-dependent extra precision).
 
-    `where` on a runtime predicate is the one construct XLA CPU/TPU will not
+    `where` on a runtime predicate is the one construct XLA will not
     contract across (barriers/reduce_precision/bitcasts all get stripped or
     looked through — see module docstring). Identity for finite values;
     non-finite values poison to NaN.

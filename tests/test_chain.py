@@ -1,12 +1,8 @@
-"""Whole-opdef fused chain kernel (`lowering/pallas_chain`).
-
-VERDICT r2 item #2 residue: composite opdefs (the reference's normal case,
-e.g. `ac_A` in `/root/reference/test/smoke_tests/smoke_time_advance.mlir:30-60`)
-previously ran stage-at-a-time — one Pallas window pass (= one full HBM round
-trip) per apply. The chain kernel walks the WHOLE flattened apply DAG inside
-one rolling-window pass, holding intermediates VMEM-resident. These tests run
-it in interpret mode against the jnp lowering as oracle, and check the plan's
-eligibility gates and the custom_jvp differentiation fallback.
+"""Composite (multi-stage) opdefs — the reference's normal operator shape,
+e.g. `ac_A` in `smoke_time_advance.mlir:30-60` — against the NumPy stencil
+applied stage by stage: rank 2 and 3, f32 and f64, runtime scalars, torus
+and mixed torus/bounded stages, coordinate-dependent bodies, the sharded
+fused-composite route, and differentiation (jvp, grad) through the chain.
 """
 
 import jax
@@ -14,26 +10,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from neptune_tpu.config import config
+import np_oracle
 from neptune_tpu.ir import (
-    F32,
     Bounds,
     NeptuneBuilder,
     ScalarType,
     TempType,
 )
-from neptune_tpu.lowering import pallas_chain
-from neptune_tpu.lowering.executor import CompiledModule
 from neptune_tpu.passes import compile_ir
-
-
-@pytest.fixture
-def interpret():
-    config.pallas_interpret = True
-    try:
-        yield
-    finally:
-        config.pallas_interpret = False
 
 
 def _build_lap(b, tt, n, rank, name="lap", dtype="float32"):
@@ -164,132 +148,122 @@ def periodic_chain_module(n, stages=3, mixed=False, use_index=False):
     return compile_ir(b.module)
 
 
-class TestChainPlan:
-    def test_eligible_composite(self):
-        cm = lap_chain_module(128)
-        plan = pallas_chain.chain_plan(cm.module, "chain")
-        assert plan is not None
-        assert len(plan["stages"]) == 2
-        assert plan["hp"] >= 2 and plan["hp"] % 8 == 0
-        assert plan["shape"][0] % plan["slab"] == 0
-
-    def test_single_apply_ineligible(self):
-        # single applies take the existing one-op window kernels
-        cm = lap_chain_module(128, stages=1)
-        assert pallas_chain.chain_plan(cm.module, "chain") is None
-
-    def test_f64_ineligible(self):
-        cm = lap_chain_module(128, dtype="float64")
-        assert pallas_chain.chain_plan(cm.module, "chain") is None
-
-    def test_narrow_grid_ineligible(self):
-        # last dim < 128 lanes: not worth a window pass
-        cm = lap_chain_module(64)
-        assert pallas_chain.chain_plan(cm.module, "chain") is None
+def _x(shape, seed, dtype=np.float32):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
 
 
-class TestPeriodicChain:
-    def test_plan_whole_grid_only(self):
-        cm = periodic_chain_module(128)
-        plan = pallas_chain.chain_plan(cm.module, "chain")
-        assert plan is not None and plan["periodic"]
-        # a caller-supplied local shape (the shard_map path) must reject
-        # periodic chains: torus wrap is defined against the outer bounds
-        assert pallas_chain.chain_plan(cm.module, "chain", (128, 128)) is None
+def lap_oracle(x, stages):
+    lap = np_oracle.LAP5 if x.ndim == 2 else np_oracle.LAP7
+    return np_oracle.sweeps(x, lap, stages, np_oracle.interior(x.shape, 1))
 
-    def test_matches_jnp_oracle(self, interpret):
-        cm = periodic_chain_module(128, stages=3)
-        assert pallas_chain.chain_plan(cm.module, "chain") is not None
-        x = np.random.default_rng(11).standard_normal((128, 128)).astype(
-            np.float32
-        )
-        out = np.asarray(cm.opdef("chain")(x))
-        ref = np.asarray(CompiledModule(cm.module, "jnp").opdef("chain")(x))
-        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
 
-    def test_mixed_periodic_bounded_stages(self, interpret):
-        cm = periodic_chain_module(128, stages=3, mixed=True)
-        assert pallas_chain.chain_plan(cm.module, "chain") is not None
-        x = np.random.default_rng(12).standard_normal((128, 128)).astype(
-            np.float32
-        )
-        out = np.asarray(cm.opdef("chain")(x))
-        ref = np.asarray(CompiledModule(cm.module, "jnp").opdef("chain")(x))
-        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+def wjac_oracle(x, w, stages=2):
+    offs = [((0, 0), 1.0 - w)] + [(o, w / 4) for o, _ in np_oracle.LAP5[1:]]
+    return np_oracle.sweeps(x, offs, stages, np_oracle.interior(x.shape, 1))
 
-    def test_index_coordinates_wrap(self, interpret):
-        # coordinate-dependent bodies: the wrapped edge-window rows must
-        # evaluate index() at the TRUE torus row, not the out-of-range
-        # window coordinate
-        cm = periodic_chain_module(128, stages=3, use_index=True)
-        assert pallas_chain.chain_plan(cm.module, "chain") is not None
-        x = np.random.default_rng(13).standard_normal((128, 128)).astype(
-            np.float32
-        )
-        out = np.asarray(cm.opdef("chain")(x))
-        ref = np.asarray(CompiledModule(cm.module, "jnp").opdef("chain")(x))
-        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+def periodic_oracle(x, stages=3, mixed=False, use_index=False):
+    y = np.asarray(x, np.float64)
+    ramp = 1e-4 * np.arange(x.shape[0], dtype=np.float64)[:, None]
+    for i in range(stages):
+        if mixed and i == stages // 2:
+            y = lap_oracle(y, 1)
+            continue
+        y = np_oracle.apply(
+            y,
+            lambda r: 0.6 * r(0, 0) + 0.1 * (r(-1, 0) + r(1, 0) + r(0, -1)
+                                             + r(0, 1)),
+            periodic=True,
+        ) + (ramp if use_index else 0.0)
+    return y
 
 
 class TestChainExecution:
-    def test_matches_jnp_oracle_rank2(self, interpret):
+    def test_rank2(self):
         cm = lap_chain_module(128, stages=3)
-        assert pallas_chain.chain_plan(cm.module, "chain") is not None
-        x = np.random.default_rng(0).standard_normal((128, 128)).astype(
-            np.float32
-        )
+        x = _x((128, 128), 0)
         out = np.asarray(cm.opdef("chain")(x))
-        ref = np.asarray(CompiledModule(cm.module, "jnp").opdef("chain")(x))
-        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(out, lap_oracle(x, 3), rtol=1e-5, atol=1e-4)
 
-    def test_matches_jnp_oracle_rank3(self, interpret):
+    def test_rank3(self):
         cm = lap_chain_module(128, rank=3)
-        assert pallas_chain.chain_plan(cm.module, "chain") is not None
-        x = np.random.default_rng(1).standard_normal((32, 16, 128)).astype(
-            np.float32
-        )
+        x = _x((32, 16, 128), 1)
         out = np.asarray(cm.opdef("chain")(x))
-        ref = np.asarray(CompiledModule(cm.module, "jnp").opdef("chain")(x))
-        # f32 contraction order differs between the windowed and whole-array
-        # lowerings; agreement is to f32 roundoff, not bitwise
-        np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(out, lap_oracle(x, 2), rtol=1e-5, atol=1e-4)
 
-    def test_runtime_scalar_threading(self, interpret):
+    def test_f64(self):
+        cm = lap_chain_module(128, dtype="float64")
+        x = _x((128, 128), 2, np.float64)
+        out = np.asarray(cm.opdef("chain")(x))
+        np.testing.assert_allclose(out, lap_oracle(x, 2), rtol=1e-13, atol=1e-12)
+
+    def test_narrow_grid(self):
+        cm = lap_chain_module(64)
+        x = _x((64, 64), 3)
+        out = np.asarray(cm.opdef("chain")(x))
+        np.testing.assert_allclose(out, lap_oracle(x, 2), rtol=1e-5, atol=1e-4)
+
+    def test_single_stage(self):
+        cm = lap_chain_module(128, stages=1)
+        x = _x((128, 128), 4)
+        out = np.asarray(cm.opdef("chain")(x))
+        np.testing.assert_allclose(out, lap_oracle(x, 1), rtol=1e-5, atol=1e-5)
+
+    def test_runtime_scalar_threading(self):
         cm = scalar_chain_module(128)
-        assert pallas_chain.chain_plan(cm.module, "chain") is not None
-        oracle = CompiledModule(cm.module, "jnp").opdef("chain")
-        x = np.random.default_rng(2).standard_normal((128, 128)).astype(
-            np.float32
-        )
+        x = _x((128, 128), 5)
         run = cm.opdef("chain")
         for w in (0.8, 1.3):  # two values: resolved at runtime, not baked
             out = np.asarray(run(x, np.float32(w)))
-            ref = np.asarray(oracle(x, np.float32(w)))
-            np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+            np.testing.assert_allclose(out, wjac_oracle(x, w), atol=1e-5)
 
-    def test_jvp_falls_back_to_jnp(self, interpret):
-        # pallas_call has no JVP rule; the opdef callable's custom_jvp
-        # re-derives primal+tangent from the jnp lowering
+    def test_jvp(self):
+        # linear chain: the tangent is the chain applied to the direction
         cm = lap_chain_module(128)
-        f = cm.opdef("chain")
-        x = jnp.asarray(
-            np.random.default_rng(3).standard_normal((128, 128)), jnp.float32
+        x = jnp.asarray(_x((128, 128), 6))
+        v = jnp.asarray(_x((128, 128), 7))
+        y, t = jax.jvp(cm.opdef("chain"), (x,), (v,))
+        np.testing.assert_allclose(
+            np.asarray(y), lap_oracle(np.asarray(x), 2), rtol=1e-5, atol=1e-4
         )
-        v = jnp.ones_like(x)
-        y, t = jax.jvp(f, (x,), (v,))
-        oy, ot = jax.jvp(
-            CompiledModule(cm.module, "jnp").opdef("chain"), (x,), (v,)
+        np.testing.assert_allclose(
+            np.asarray(t), lap_oracle(np.asarray(v), 2), rtol=1e-5, atol=1e-4
         )
-        np.testing.assert_allclose(np.asarray(y), np.asarray(oy), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(t), np.asarray(ot), atol=1e-5)
 
-    def test_sharded_composite_core_through_chain(self, interpret):
-        # the fused-composite sharded route runs its zero-ghost core sweep
-        # through the chain kernel (one pass for the whole DAG); band
-        # fixups restore cross-shard edges. Oracle: the non-sharded jnp
-        # lowering over the full grid.
-        if len(jax.devices()) < 4:
-            pytest.skip("needs 4 virtual devices")
+    def test_grad_through_opdef(self):
+        # grad of sum(A(u)^2) is 2 A^T A u, with A assembled densely from
+        # the NumPy oracle column by column
+        n = 24
+        cm = lap_chain_module(n, dtype="float64")
+        f = cm.opdef("chain")
+        x = _x((n, n), 8, np.float64)
+        g = jax.grad(lambda u: jnp.sum(f(u) ** 2))(jnp.asarray(x))
+        eye = np.eye(n * n)
+        A = np.stack(
+            [lap_oracle(e.reshape(n, n), 2).ravel() for e in eye], axis=1
+        )
+        want = (2.0 * A.T @ (A @ x.ravel())).reshape(n, n)
+        np.testing.assert_allclose(np.asarray(g), want, rtol=1e-10, atol=1e-9)
+
+
+class TestPeriodicChain:
+    @pytest.mark.parametrize(
+        "mixed,use_index", [(False, False), (True, False), (False, True)],
+        ids=["torus", "mixed_bounded_stage", "index_coordinates"],
+    )
+    def test_matches_oracle(self, mixed, use_index):
+        cm = periodic_chain_module(128, stages=3, mixed=mixed,
+                                   use_index=use_index)
+        x = _x((128, 128), 11)
+        out = np.asarray(cm.opdef("chain")(x))
+        want = periodic_oracle(x, 3, mixed, use_index)
+        np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-5)
+
+
+class TestShardedChain:
+    def test_sharded_composite(self):
+        # the fused-composite sharded route: zero-ghost chain on the cores,
+        # band fixups restore cross-shard edges
         from neptune_tpu.parallel import GridMesh, shardmap_opdef
         from neptune_tpu.parallel.sharded_apply import plan_opdef
 
@@ -297,45 +271,20 @@ class TestChainExecution:
         cm = lap_chain_module(n)
         gm = GridMesh((2, 2), ("x", "y"))
         assert plan_opdef(cm, "chain", gm).kind == "fused-composite"
-        # local blocks are 128x128: the chain plan engages on nloc
-        assert (
-            pallas_chain.chain_plan(cm.module, "chain", (128, 128))
-            is not None
-        )
         f = jax.jit(shardmap_opdef(cm, "chain", gm))
-        x = np.random.default_rng(5).standard_normal((n, n)).astype(
-            np.float32
-        )
+        x = _x((n, n), 12)
         out = np.asarray(f(gm.shard(jnp.asarray(x))))
-        ref = np.asarray(CompiledModule(cm.module, "jnp").opdef("chain")(x))
-        np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(out, lap_oracle(x, 2), rtol=1e-5, atol=1e-4)
 
-    def test_sharded_composite_chain_runtime_scalar(self, interpret):
-        if len(jax.devices()) < 2:
-            pytest.skip("needs 2 virtual devices")
+    def test_sharded_runtime_scalar(self):
         from neptune_tpu.parallel import GridMesh, shardmap_opdef
 
         n = 256
         cm = scalar_chain_module(n)
         gm = GridMesh((2,), ("x",))
         f = jax.jit(shardmap_opdef(cm, "chain", gm))
-        oracle = CompiledModule(cm.module, "jnp").opdef("chain")
-        x = np.random.default_rng(6).standard_normal((n, n)).astype(
-            np.float32
-        )
+        x = _x((n, n), 13)
         xs = gm.shard(jnp.asarray(x))
         for w in (0.8, 1.3):
             out = np.asarray(f(xs, jnp.float32(w)))
-            ref = np.asarray(oracle(x, np.float32(w)))
-            np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
-
-    def test_grad_through_opdef(self, interpret):
-        cm = lap_chain_module(128)
-        f = cm.opdef("chain")
-        x = jnp.asarray(
-            np.random.default_rng(4).standard_normal((128, 128)), jnp.float32
-        )
-        g = jax.grad(lambda u: jnp.sum(f(u) ** 2))(x)
-        oracle = CompiledModule(cm.module, "jnp").opdef("chain")
-        og = jax.grad(lambda u: jnp.sum(oracle(u) ** 2))(x)
-        np.testing.assert_allclose(np.asarray(g), np.asarray(og), atol=1e-4)
+            np.testing.assert_allclose(out, wjac_oracle(x, w), atol=1e-5)

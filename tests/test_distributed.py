@@ -7,13 +7,9 @@ import jax
 import pytest
 
 from neptune_tpu.parallel import initialize_multihost
-from neptune_tpu.parallel import distributed as dist
 
 
 def test_single_host_noop(monkeypatch):
-    # ensure the pod auto-detect path is off regardless of host env
-    monkeypatch.delenv("MEGASCALE_COORDINATOR_ADDRESS", raising=False)
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES", raising=False)
     called = []
     monkeypatch.setattr(
         jax.distributed, "initialize", lambda *a, **k: called.append(1)
@@ -43,13 +39,15 @@ def test_real_failure_propagates(monkeypatch):
                              num_processes=2, process_id=0)
 
 
-def test_pod_autodetect_uses_env(monkeypatch):
-    monkeypatch.setenv("MEGASCALE_COORDINATOR_ADDRESS", "head:8476")
+def test_explicit_args_forwarded(monkeypatch):
     called = []
-    monkeypatch.setattr(jax.distributed, "initialize", lambda: called.append(1))
-    initialize_multihost()
-    assert called == [1]
-    assert dist._looks_like_pod()
+    monkeypatch.setattr(
+        jax.distributed, "initialize", lambda **kw: called.append(kw)
+    )
+    initialize_multihost(coordinator_address="localhost:1234",
+                         num_processes=4, process_id=3)
+    assert called == [dict(coordinator_address="localhost:1234",
+                           num_processes=4, process_id=3)]
 
 
 def test_two_process_dcn_smoke(tmp_path):

@@ -41,9 +41,9 @@ def _dumps():
     out["allen_cahn_nonlinear_annotated.ntir"] = pr.dumps["post-convert-verify"]
 
     # sharded-program plan dumps (VERDICT r2 #9: the golden tier had no
-    # sharded entry) — pin all three shard_map routes byte-for-byte:
-    # fused-strip (rank-3), fused-composite (ac_A chain), and the
-    # extended-block fallback (periodic op under forced pallas).
+    # sharded entry) — pin the shard_map routes byte-for-byte:
+    # fused-strip (rank-3, and the periodic wide stencil), fused-composite
+    # (ac_A chain).
     from neptune_tpu.parallel import GridMesh, plan_report
     from neptune_tpu.passes import compile_ir
 
@@ -61,9 +61,7 @@ def _dumps():
 
     pr = run_pipeline(programs.build_periodic_advection4())
     cm = compile_ir(pr.module)
-    out["sharded_adv4_pallas_plan.txt"] = plan_report(
-        cm, "adv4", gm4, backend="pallas"
-    )
+    out["sharded_adv4_plan.txt"] = plan_report(cm, "adv4", gm4)
     return out
 
 
@@ -86,7 +84,7 @@ def regenerate():
         "allen_cahn_nonlinear_annotated.ntir",
         "sharded_heat3d_plan.txt",
         "sharded_ac_plan.txt",
-        "sharded_adv4_pallas_plan.txt",
+        "sharded_adv4_plan.txt",
     ],
 )
 def test_golden_dump(name):

@@ -1,22 +1,19 @@
-"""Temporal-blocking multi-sweep kernel vs the K-fold single-apply oracle.
-
-The fused kernel restructures K sweeps into one HBM pass; these tests pin
-that the restructuring is bit-faithful to K separate applies (same rolls,
-same copy-through masks) across halo widths, domain shapes, edge slabs,
-scalar parameters, and the fallback paths.
+"""Repeated application (`cm.sweeps`, `ntp.sweeps`, `shardmap_sweeps`) against
+K NumPy stencil steps (`np_oracle.sweeps`), across halo widths, domain
+shapes (small, wide rows, non-multiple-of-8 extents, rank 3), scalar
+parameters, torus domains, deep K, and the rejection paths.
 """
 
 import numpy as np
 import pytest
 
-from neptune_tpu.config import config
-from neptune_tpu.ir import Bounds, F32, NeptuneBuilder, TempType
-from neptune_tpu.lowering import pallas_multisweep
+import np_oracle
+from neptune_tpu.ir import F32, F64, Bounds, NeptuneBuilder, TempType
 from neptune_tpu.passes import compile_ir
 
 
 def jacobi_module(n0, n1, offsets_coefs, *, dtype="float32", periodic=False,
-                  n_scalars=0):
+                  n_scalars=0, interior=None):
     """opdef y = sum_c c * x[off] over the halo-shrunk interior."""
     b = NeptuneBuilder()
     bounds = Bounds.of((0, 0), (n0, n1))
@@ -24,10 +21,11 @@ def jacobi_module(n0, n1, offsets_coefs, *, dtype="float32", periodic=False,
     stypes = [F32] * n_scalars
     fn = b.make_opdef("op", "nonlinear_opdef", [tt] + stypes, [tt])
     b.push_block(fn.body)
-    h = [max(abs(o[d]) for o, _ in offsets_coefs) for d in (0, 1)]
-    interior = bounds if periodic else Bounds.of(
-        (h[0], h[1]), (n0 - h[0], n1 - h[1])
-    )
+    if interior is None:
+        h = [max(abs(o[d]) for o, _ in offsets_coefs) for d in (0, 1)]
+        interior = bounds if periodic else Bounds.of(
+            (h[0], h[1]), (n0 - h[0], n1 - h[1])
+        )
     op, body = b.start_apply(
         [fn.body.args[0]],
         interior,
@@ -35,17 +33,14 @@ def jacobi_module(n0, n1, offsets_coefs, *, dtype="float32", periodic=False,
         periodic=periodic,
     )
     b.push_block(body)
-    from neptune_tpu.ir import F64
-
     cdtype = F64 if dtype == "float64" else F32
     acc = None
     for off, c in offsets_coefs:
         t = b.mul(b.access(body.args[2], off), b.constant(c, cdtype))
         acc = t if acc is None else b.add(acc, t)
-    if n_scalars:
-        # scale by the trailing scalar params so they reach the DAG
-        for sa in body.args[3:]:
-            acc = b.mul(acc, sa)
+    # scale by the trailing scalar params so they reach the DAG
+    for sa in body.args[3:]:
+        acc = b.mul(acc, sa)
     b.yield_(acc)
     b.pop_block()
     b.return_([b.finish_apply(op)])
@@ -59,131 +54,95 @@ WIDE = [((0, 0), 0.4), ((-2, 0), 0.15), ((2, 0), 0.15),
         ((0, -2), 0.15), ((0, 2), 0.15)]
 
 
-def run_both(module, shape, k, n_scalars=0):
-    cm = compile_ir(module, backend="auto")
-    rng = np.random.default_rng(42)
-    x = rng.standard_normal(shape).astype(np.float32)
+def _box(shape, offsets_coefs, periodic):
+    if periodic:
+        return None
+    h = [max(abs(o[d]) for o, _ in offsets_coefs) for d in range(len(shape))]
+    return np_oracle.interior(shape, h)
+
+
+def run_oracle(module, shape, k, offsets_coefs, *, periodic=False,
+               n_scalars=0, dtype=np.float32, atol=1e-5, box=None):
+    """cm.sweeps(op, k) == k NumPy steps of the same linear stencil."""
+    cm = compile_ir(module)
+    x = np.random.default_rng(42).standard_normal(shape).astype(dtype)
     scalars = [np.float32(0.9)] * n_scalars
-
-    one = cm.opdef("op")
-    y_ref = x
-    for _ in range(k):
-        y_ref = np.asarray(one(y_ref, *scalars), np.float32)
-
-    config.pallas_interpret = True
-    try:
-        assert pallas_multisweep.sweeps_plan(cm.module, "op", k) is not None
-        y_fused = np.asarray(cm.sweeps("op", k)(x, *scalars))
-    finally:
-        config.pallas_interpret = False
-    np.testing.assert_allclose(y_fused, y_ref, atol=1e-5)
+    coefs = [(o, c * 0.9 ** n_scalars) for o, c in offsets_coefs]
+    y = np.asarray(cm.sweeps("op", k)(x, *scalars))
+    if box is None:
+        box = _box(shape, offsets_coefs, periodic)
+    want = np_oracle.sweeps(x, coefs, k, box, periodic)
+    np.testing.assert_allclose(y, want, atol=atol)
 
 
-class TestFusedSweeps:
+class TestSweeps2D:
     @pytest.mark.parametrize("k", [2, 4, 8])
     def test_five_point(self, k):
-        run_both(jacobi_module(128, 256, FIVE_POINT), (128, 256), k)
+        run_oracle(jacobi_module(128, 256, FIVE_POINT), (128, 256), k,
+                   FIVE_POINT)
 
     def test_wide_halo(self):
-        # h0 = 2, K = 4 -> 8 halo rows
-        run_both(jacobi_module(128, 256, WIDE), (128, 256), 4)
+        run_oracle(jacobi_module(128, 256, WIDE), (128, 256), 4, WIDE)
 
-    def test_single_slab_grid(self):
-        # whole grid is one slab: both window clamps active at once
-        run_both(jacobi_module(96, 128, FIVE_POINT), (96, 128), 3)
+    def test_small_grid(self):
+        run_oracle(jacobi_module(96, 128, FIVE_POINT), (96, 128), 3,
+                   FIVE_POINT)
 
     def test_asymmetric_offsets(self):
         offs = [((0, 0), 0.5), ((-2, 1), 0.2), ((1, -1), 0.3)]
-        run_both(jacobi_module(128, 128, offs), (128, 128), 4)
+        run_oracle(jacobi_module(128, 128, offs), (128, 128), 4, offs)
 
     def test_scalar_params(self):
-        run_both(
-            jacobi_module(128, 128, FIVE_POINT, n_scalars=1),
-            (128, 128),
-            3,
-            n_scalars=1,
-        )
+        run_oracle(jacobi_module(128, 128, FIVE_POINT, n_scalars=1),
+                   (128, 128), 3, FIVE_POINT, n_scalars=1)
 
-    def test_periodic_fused_matches(self):
-        # round 4: full-domain periodic IS window-eligible (ring fetch with
-        # wrapped edge DMAs); the fused K sweeps must still match K-fold
-        # application exactly
-        m = jacobi_module(64, 128, FIVE_POINT, periodic=True)
-        cm = compile_ir(m, backend="auto")
-        assert pallas_multisweep.sweeps_plan(cm.module, "op", 4) is not None
-        rng = np.random.default_rng(7)
-        x = rng.standard_normal((64, 128)).astype(np.float32)
-        one = cm.opdef("op")
-        y_ref = x
-        for _ in range(4):
-            y_ref = np.asarray(one(y_ref), np.float32)
-        y = np.asarray(cm.sweeps("op", 4)(x))
-        np.testing.assert_allclose(y, y_ref, atol=1e-5)
+    def test_periodic(self):
+        run_oracle(jacobi_module(64, 128, FIVE_POINT, periodic=True),
+                   (64, 128), 4, FIVE_POINT, periodic=True)
 
-    def test_fallback_f64(self):
-        m = jacobi_module(64, 128, FIVE_POINT, dtype="float64")
-        cm = compile_ir(m, backend="auto")
-        assert pallas_multisweep.sweeps_plan(cm.module, "op", 4) is None
-        rng = np.random.default_rng(8)
-        x = rng.standard_normal((64, 128))
-        one = cm.opdef("op")
-        y_ref = x
-        for _ in range(4):
-            y_ref = np.asarray(one(y_ref))
-        np.testing.assert_allclose(np.asarray(cm.sweeps("op", 4)(x)), y_ref,
-                                   atol=1e-12)
+    def test_f64(self):
+        run_oracle(jacobi_module(64, 128, FIVE_POINT, dtype="float64"),
+                   (64, 128), 4, FIVE_POINT, dtype=np.float64, atol=1e-12)
 
-    def test_depth_cap(self):
-        # K * h0 beyond the halo cap is ineligible (falls back), k=1 too
-        m = jacobi_module(128, 256, FIVE_POINT)
-        cm = compile_ir(m, backend="auto")
-        assert pallas_multisweep.sweeps_plan(cm.module, "op", 1) is None
-        assert pallas_multisweep.sweeps_plan(cm.module, "op", 49) is None
-        # wide stencil: h0 = 2 halves the depth cap
-        mw = jacobi_module(128, 256, WIDE)
-        cmw = compile_ir(mw, backend="auto")
-        assert pallas_multisweep.sweeps_plan(cmw.module, "op", 25) is None
+    def test_deep_wide(self):
+        run_oracle(jacobi_module(256, 256, WIDE), (256, 256), 16, WIDE)
 
-    def test_deep_wide_fusion(self):
-        # h0 = 2 at K = 16 (hp = 32): beyond the old 24-row cap; the fused
-        # window must still be bit-faithful to 16 separate applies
-        run_both(jacobi_module(256, 256, WIDE), (256, 256), 16)
+    def test_deep_five_point(self):
+        run_oracle(jacobi_module(256, 256, FIVE_POINT), (256, 256), 32,
+                   FIVE_POINT)
 
-    def test_deep_five_point_fusion(self):
-        # h0 = 1 at K = 32 (hp = 32)
-        run_both(jacobi_module(256, 256, FIVE_POINT), (256, 256), 32)
-
-    def test_wide_row_budget_escalation(self):
-        # 2048-wide rows at h0 = 2, K = 16 (hp = 32): the default 9MB
-        # budget only fits a 64-row slab (< 4*hp), so the plan escalates
-        # to the wide budget and still matches the K-fold oracle
-        from neptune_tpu.lowering.pallas_multisweep import sweeps_plan
-
-        m = jacobi_module(256, 2048, WIDE)
-        cm = compile_ir(m, backend="auto")
-        plan = sweeps_plan(cm.module, "op", 16)
-        assert plan is not None and plan["slab"] >= 4 * plan["hp"], plan
-        run_both(m, (256, 2048), 16)
+    def test_wide_rows(self):
+        run_oracle(jacobi_module(256, 2048, WIDE), (256, 2048), 16, WIDE)
 
     @pytest.mark.parametrize("k", [11, 16])
-    def test_depth_decomposition(self, k):
-        # k beyond the per-call cap runs as chained fused calls (+ leftover
-        # single sweeps when no depth divides k)
-        m = jacobi_module(128, 256, FIVE_POINT)
-        cm = compile_ir(m, backend="auto")
-        assert pallas_multisweep.best_depth(cm.module, "op", k) is not None
-        rng = np.random.default_rng(11)
-        x = rng.standard_normal((128, 256)).astype(np.float32)
-        one = cm.opdef("op")
-        y_ref = x
-        for _ in range(k):
-            y_ref = np.asarray(one(y_ref), np.float32)
-        config.pallas_interpret = True
-        try:
-            y = np.asarray(cm.sweeps("op", k)(x))
-        finally:
-            config.pallas_interpret = False
-        np.testing.assert_allclose(y, y_ref, atol=1e-5)
+    def test_odd_depths(self, k):
+        run_oracle(jacobi_module(128, 256, FIVE_POINT), (128, 256), k,
+                   FIVE_POINT)
+
+    def test_big_grid(self):
+        run_oracle(jacobi_module(1152, 1024, FIVE_POINT), (1152, 1024), 4,
+                   FIVE_POINT)
+
+    def test_periodic_k6(self):
+        run_oracle(jacobi_module(64, 128, FIVE_POINT, periodic=True),
+                   (64, 128), 6, FIVE_POINT, periodic=True)
+
+    def test_periodic_big_grid(self):
+        run_oracle(jacobi_module(1152, 1024, FIVE_POINT, periodic=True),
+                   (1152, 1024), 4, FIVE_POINT, periodic=True)
+
+    def test_deep_k40(self):
+        run_oracle(jacobi_module(128, 128, FIVE_POINT), (128, 128), 40,
+                   FIVE_POINT, atol=3e-5)
+
+    def test_non_8_multiple_extent(self):
+        run_oracle(jacobi_module(500, 256, FIVE_POINT), (500, 256), 4,
+                   FIVE_POINT)
+
+    def test_deep_reach_wide_rows(self):
+        # reach 9 in dim 0 over 16384-wide rows
+        offs = [((0, 0), 0.4), ((-9, 0), 0.3), ((9, 0), 0.3)]
+        run_oracle(jacobi_module(64, 16384, offs), (64, 16384), 2, offs)
 
 
 def test_dsl_sweeps_surface():
@@ -200,106 +159,13 @@ def test_dsl_sweeps_surface():
         return 0.25 * (u[-1, 0] + u[1, 0] + u[0, -1] + u[0, 1])
 
     x = np.random.default_rng(0).standard_normal((128, 256)).astype(np.float32)
-    r = x
-    for _ in range(4):
-        r = np.asarray(jac(r), np.float32)
-    config.pallas_interpret = True
-    try:
-        y = np.asarray(ntp.sweeps(jac, 4)(x))
-    finally:
-        config.pallas_interpret = False
-    np.testing.assert_allclose(y, r, atol=1e-5)
-
-
-class TestResidentAndWindowPaths:
-    def test_window_path_still_used_for_big_grids(self):
-        # > _RESIDENT_BYTES forces the rolling-window kernel; pin that the
-        # dispatch picks it and that it matches the loop
-        m = jacobi_module(1152, 1024, FIVE_POINT)
-        cm = compile_ir(m, backend="auto")
-        assert pallas_multisweep.resident_plan(cm.module, "op", 4) is None
-        assert pallas_multisweep.sweeps_plan(cm.module, "op", 4) is not None
-        rng = np.random.default_rng(21)
-        x = rng.standard_normal((1152, 1024)).astype(np.float32)
-        one = cm.opdef("op")
-        y_ref = x
-        for _ in range(4):
-            y_ref = np.asarray(one(y_ref), np.float32)
-        config.pallas_interpret = True
-        try:
-            y = np.asarray(cm.sweeps("op", 4)(x))
-        finally:
-            config.pallas_interpret = False
-        np.testing.assert_allclose(y, y_ref, atol=1e-5)
-
-    def test_resident_path_small_grid(self):
-        m = jacobi_module(128, 256, FIVE_POINT)
-        cm = compile_ir(m, backend="auto")
-        assert pallas_multisweep.resident_plan(cm.module, "op", 4) is not None
-
-    def test_periodic_resident(self):
-        # periodic operators fuse via the resident kernel (rolls = torus)
-        m = jacobi_module(64, 128, FIVE_POINT, periodic=True)
-        cm = compile_ir(m, backend="auto")
-        assert pallas_multisweep.best_depth(cm.module, "op", 6) is not None
-        rng = np.random.default_rng(22)
-        x = rng.standard_normal((64, 128)).astype(np.float32)
-        one = cm.opdef("op")
-        y_ref = x
-        for _ in range(6):
-            y_ref = np.asarray(one(y_ref), np.float32)
-        config.pallas_interpret = True
-        try:
-            y = np.asarray(cm.sweeps("op", 6)(x))
-        finally:
-            config.pallas_interpret = False
-        np.testing.assert_allclose(y, y_ref, atol=1e-5)
-
-    def test_periodic_window_path_routed(self):
-        # regression: best_depth used to call find_sweep_apply without
-        # allow_periodic, so window-sized periodic operators (too big for
-        # the resident kernel) never reached the K-sweep window and fell
-        # back to per-sweep execution despite sweeps_plan admitting them
-        m = jacobi_module(1152, 1024, FIVE_POINT, periodic=True)
-        cm = compile_ir(m, backend="auto")
-        assert pallas_multisweep.resident_plan(cm.module, "op", 4) is None
-        assert pallas_multisweep.sweeps_plan(cm.module, "op", 4) is not None
-        assert pallas_multisweep.best_depth(cm.module, "op", 4) is not None
-        rng = np.random.default_rng(29)
-        x = rng.standard_normal((1152, 1024)).astype(np.float32)
-        one = cm.opdef("op")
-        y_ref = x
-        for _ in range(4):
-            y_ref = np.asarray(one(y_ref), np.float32)
-        config.pallas_interpret = True
-        try:
-            y = np.asarray(cm.sweeps("op", 4)(x))
-        finally:
-            config.pallas_interpret = False
-        np.testing.assert_allclose(y, y_ref, atol=1e-5)
-
-    def test_resident_deep_k(self):
-        # k beyond the per-call unroll cap chains resident calls
-        m = jacobi_module(128, 128, FIVE_POINT)
-        cm = compile_ir(m, backend="auto")
-        k = 40
-        rng = np.random.default_rng(23)
-        x = rng.standard_normal((128, 128)).astype(np.float32)
-        one = cm.opdef("op")
-        y_ref = x
-        for _ in range(k):
-            y_ref = np.asarray(one(y_ref), np.float32)
-        config.pallas_interpret = True
-        try:
-            y = np.asarray(cm.sweeps("op", k)(x))
-        finally:
-            config.pallas_interpret = False
-        np.testing.assert_allclose(y, y_ref, atol=3e-5)
+    offs = [((-1, 0), .25), ((1, 0), .25), ((0, -1), .25), ((0, 1), .25)]
+    want = np_oracle.sweeps(x, offs, 4, np_oracle.interior(x.shape, 1))
+    y = np.asarray(ntp.sweeps(jac, 4)(x))
+    np.testing.assert_allclose(y, want, atol=1e-5)
 
 
 def test_sweeps_rejects_non_unary():
-    from neptune_tpu.ir import Bounds, NeptuneBuilder, TempType
-
     b = NeptuneBuilder()
     tt = TempType("float32", Bounds.of((0, 0), (16, 16)))
     fn = b.make_opdef("binop", "nonlinear_opdef", [tt, tt], [tt])
@@ -310,7 +176,7 @@ def test_sweeps_rejects_non_unary():
     b.pop_block()
     b.return_([b.finish_apply(op)])
     b.pop_block()
-    cm = compile_ir(b.module, backend="auto")
+    cm = compile_ir(b.module)
     with pytest.raises(ValueError, match="unary"):
         cm.sweeps("binop", 4)
 
@@ -367,125 +233,55 @@ SEVEN_POINT = [((0, 0, 0), 0.4), ((-1, 0, 0), 0.1), ((1, 0, 0), 0.1),
                ((0, 0, -1), 0.1), ((0, 0, 1), 0.1)]
 
 
-class TestFusedSweeps3D:
+class TestSweeps3D:
     @pytest.mark.parametrize("k", [2, 4])
-    def test_seven_point_windowed(self, k):
-        # 96*64*256 f32 = 6MB: too big for the resident variant, takes the
-        # slab-windowed kernel with whole (N1, N2) planes per window row
+    def test_seven_point(self, k):
         m = jacobi_module_3d(96, 64, 256, SEVEN_POINT)
-        cm = compile_ir(m, backend="auto")
-        assert pallas_multisweep.resident_plan(cm.module, "op", k) is None
-        assert pallas_multisweep.sweeps_plan(cm.module, "op", k) is not None
-        run_both(m, (96, 64, 256), k)
+        run_oracle(m, (96, 64, 256), k, SEVEN_POINT)
 
-    def test_seven_point_resident(self):
-        # 32*32*128 f32 = 512KB: whole grid VMEM-resident
+    def test_seven_point_small(self):
         m = jacobi_module_3d(32, 32, 128, SEVEN_POINT)
-        cm = compile_ir(m, backend="auto")
-        assert pallas_multisweep.resident_plan(cm.module, "op", 4) is not None
-        run_both(m, (32, 32, 128), 4)
+        run_oracle(m, (32, 32, 128), 4, SEVEN_POINT)
 
-    def test_periodic_3d_resident(self):
+    def test_periodic_3d(self):
         m = jacobi_module_3d(32, 32, 128, SEVEN_POINT, periodic=True)
-        cm = compile_ir(m, backend="auto")
-        assert pallas_multisweep.resident_plan(cm.module, "op", 3) is not None
-        rng = np.random.default_rng(5)
-        x = rng.standard_normal((32, 32, 128)).astype(np.float32)
-        one = cm.opdef("op")
-        y_ref = x
-        for _ in range(3):
-            y_ref = np.asarray(one(y_ref), np.float32)
-        config.pallas_interpret = True
-        try:
-            y = np.asarray(cm.sweeps("op", 3)(x))
-        finally:
-            config.pallas_interpret = False
-        np.testing.assert_allclose(y, y_ref, atol=1e-5)
+        run_oracle(m, (32, 32, 128), 3, SEVEN_POINT, periodic=True)
 
     def test_wide_halo_3d(self):
         offs = [((0, 0, 0), 0.5), ((-2, 0, 0), 0.1), ((2, 0, 0), 0.1),
                 ((0, -1, 0), 0.1), ((0, 1, 0), 0.1),
                 ((0, 0, -2), 0.1), ((0, 0, 2), 0.1)]
         m = jacobi_module_3d(96, 64, 256, offs)
-        run_both(m, (96, 64, 256), 3)
+        run_oracle(m, (96, 64, 256), 3, offs)
 
 
-class TestTwoLevelWindow:
-    """Two-level (slab x panel) window for rows too wide for a profitable
-    one-level slab (ROADMAP: first appears past 8192^2 f32 at h0=2, K>8).
-    Triggered here at small scale by shrinking the VMEM budgets."""
+class TestWideRowShapes:
+    """Wide rows at reach 2 with K = 8: the shapes that once took a
+    two-level (slab x panel) window, whole-grid and sharded."""
 
-    @pytest.fixture()
-    def tiny_budgets(self):
-        d, w = pallas_multisweep._VMEM_BUDGET, pallas_multisweep._VMEM_BUDGET_WIDE
-        pallas_multisweep._VMEM_BUDGET = 1900 * 1024
-        pallas_multisweep._VMEM_BUDGET_WIDE = 1900 * 1024
-        yield
-        pallas_multisweep._VMEM_BUDGET = d
-        pallas_multisweep._VMEM_BUDGET_WIDE = w
+    def test_wide(self):
+        run_oracle(jacobi_module(256, 1024, WIDE), (256, 1024), 8, WIDE)
 
-    def test_plan_at_wide_rows(self):
-        # the real trigger scales, planning only (no compute): at default
-        # budgets 8192-wide h0=2 rows cannot reach slab >= 4*hp past K=8
-        for n, k in [(8192, 16), (8192, 24), (16384, 16)]:
-            m = jacobi_module(n, n, WIDE)
-            plan = pallas_multisweep.sweeps_plan(m, "op", k)
-            assert plan is not None and plan.get("two_level"), (n, k, plan)
-            assert plan["slab"] >= 4 * plan["hp"]
-            assert n % plan["pw"] == 0 and plan["pw"] % 128 == 0
-            # column halo padded to the lane tile and wide enough for creep
-            assert plan["hp1c"] % 128 == 0 and plan["hp1c"] >= k * plan["h1"]
-            # column overhead capped at 1.5x
-            assert 2 * plan["win1"] <= 3 * plan["pw"]
-            assert pallas_multisweep.best_depth(m, "op", k) is not None
-        # moderate widths keep the one-level window
-        m = jacobi_module(4096, 4096, WIDE)
-        plan = pallas_multisweep.sweeps_plan(m, "op", 16)
-        assert plan is not None and not plan.get("two_level")
+    def test_wide_with_scalars(self):
+        run_oracle(jacobi_module(256, 1024, WIDE, n_scalars=1),
+                   (256, 1024), 8, WIDE, n_scalars=1)
 
-    def test_matches_oracle(self, tiny_budgets):
-        m = jacobi_module(256, 1024, WIDE)
-        plan = pallas_multisweep.sweeps_plan(m, "op", 8)
-        assert plan is not None and plan.get("two_level"), plan
-        assert plan["pw"] < 1024  # genuinely multi-panel
-        run_both(m, (256, 1024), 8)
-
-    def test_matches_oracle_with_scalars(self, tiny_budgets):
-        m = jacobi_module(256, 1024, WIDE, n_scalars=1)
-        plan = pallas_multisweep.sweeps_plan(m, "op", 8)
-        assert plan is not None and plan.get("two_level"), plan
-        run_both(m, (256, 1024), 8, n_scalars=1)
-
-    def test_dim0_only_stencil_no_column_halo(self, tiny_budgets):
-        # h1 = 0: panels carry no column halo at all (hp1c = 0) but still
-        # shrink the row working set
+    def test_dim0_only_stencil(self):
         offs = [((0, 0), 0.6), ((-2, 0), 0.2), ((2, 0), 0.2)]
-        m = jacobi_module(256, 1024, offs)
-        plan = pallas_multisweep.sweeps_plan(m, "op", 8)
-        assert plan is not None and plan.get("two_level"), plan
-        assert plan["hp1c"] == 0 and plan["win1"] == plan["pw"]
-        run_both(m, (256, 1024), 8)
+        run_oracle(jacobi_module(256, 1024, offs), (256, 1024), 8, offs)
 
-    def test_asymmetric_offsets(self, tiny_budgets):
+    def test_asymmetric_offsets(self):
         offs = [((0, 0), 0.5), ((-2, 1), 0.2), ((1, -2), 0.3)]
-        m = jacobi_module(256, 1024, offs)
-        plan = pallas_multisweep.sweeps_plan(m, "op", 8)
-        assert plan is not None and plan.get("two_level"), plan
-        run_both(m, (256, 1024), 8)
+        run_oracle(jacobi_module(256, 1024, offs), (256, 1024), 8, offs)
 
-    def test_sharded_local_two_level(self, tiny_budgets):
-        # shardmap_sweeps routes wide LOCAL blocks through the two-level
-        # window too; clamp/roll garbage in both dims must land inside the
-        # K*reach zones the band fixups recompute — the result must match
-        # K applications of the exchanged matvec exactly where the
-        # per-sweep oracle does
+    def test_sharded_wide_rows(self):
+        # shardmap_sweeps on 256 x 1024 local blocks: K*reach-deep strips
+        # and trapezoid bands vs K NumPy steps over the whole grid
         import jax
         import jax.numpy as jnp
 
         import neptune_tpu as ntp
-        from neptune_tpu.parallel import (
-            GridMesh, shardmap_opdef, shardmap_sweeps,
-        )
+        from neptune_tpu.parallel import GridMesh, shardmap_sweeps
 
         ntp.reset_context()
         n0, n1, k = 512, 1024, 8
@@ -501,136 +297,51 @@ class TestTwoLevelWindow:
 
         cm = ntp.get_context().compiled()
         gm = GridMesh((2,), ("x",), devices=jax.devices()[:2])
-        # the 256 x 1024 local block takes the two-level route
-        op = pallas_multisweep.find_sweep_apply(cm.module, "adv4")
-        lp = pallas_multisweep.local_window_plan(op, (256, 1024), k)
-        assert lp is not None and lp.get("two_level"), lp
-
-        rng = np.random.default_rng(9)
-        x = rng.standard_normal((n0, n1)).astype(np.float32)
-        xs = gm.shard(jnp.asarray(x))
-        mv = shardmap_opdef(cm, "adv4", gm)
-        y_ref = xs
-        for _ in range(k):
-            y_ref = mv(y_ref)
-        config.pallas_interpret = True
-        try:
-            y = shardmap_sweeps(cm, "adv4", gm, k)(xs)
-        finally:
-            config.pallas_interpret = False
-        np.testing.assert_allclose(
-            np.asarray(y), np.asarray(y_ref), atol=1e-5
+        x = np.random.default_rng(9).standard_normal((n0, n1)).astype(np.float32)
+        y = shardmap_sweeps(cm, "adv4", gm, k)(gm.shard(jnp.asarray(x)))
+        want = np_oracle.sweeps(
+            x, np_oracle.ADV4, k, np_oracle.interior(x.shape, 2)
         )
+        np.testing.assert_allclose(np.asarray(y), want, atol=1e-5)
         ntp.reset_context()
 
 
-class TestPlannerAlignment:
-    def test_non_8_multiple_extent_rejected(self):
-        # review finding: a 500-row grid used to get slab=100 (interior
-        # window starts 92, 192, ... — misaligned for the sublane-tiled
-        # HBM DMA, falsifying the kernel's pl.multiple_of(w, 8) proof)
-        assert pallas_multisweep._pick_slab(500, 2048, 8, 2) is None
-        assert pallas_multisweep._pick_slab(250, 2048, 8, 2) is None
-        # 8-multiple extents keep their slabs
-        assert pallas_multisweep._pick_slab(512, 2048, 8, 2) is not None
-        # ... and a non-8-multiple grid still computes correctly via the
-        # fallback (500 rows: sweeps() must route around the window)
-        m = jacobi_module(500, 256, FIVE_POINT)
-        cm = compile_ir(m, backend="auto")
-        assert pallas_multisweep.sweeps_plan(cm.module, "op", 4) is None
-        rng = np.random.default_rng(11)
-        x = rng.standard_normal((500, 256)).astype(np.float32)
-        one = cm.opdef("op")
-        y_ref = x
-        for _ in range(4):
-            y_ref = np.asarray(one(y_ref), np.float32)
-        config.pallas_interpret = True
-        try:
-            y = np.asarray(cm.sweeps("op", 4)(x))
-        finally:
-            config.pallas_interpret = False
-        np.testing.assert_allclose(y, y_ref, atol=1e-5)
+class TestPeriodicSweeps:
+    """Torus sweeps: K applications must equal K NumPy roll steps, with
+    the wrap across the array edge; and a periodic operator with a
+    copy-through interior ring."""
 
-    def test_window_supported_gates_halo_vs_slab(self):
-        # review finding: window_supported never checked that a feasible
-        # slab >= h0 exists, so wide rows + large h0 reached the
-        # "window halo exceeds slab" raise during shard_map tracing
-        from neptune_tpu.lowering import pallas_backend
-
-        # h0 = 9 stencil over very wide rows (64KB/row -> 8-row slab)
-        offs = [((0, 0), 0.4), ((-9, 0), 0.3), ((9, 0), 0.3)]
-        m = jacobi_module(64, 16384, offs)
-        op = pallas_multisweep.find_sweep_apply(m, "op")
-        assert op is not None
-        assert not pallas_backend.window_supported(op, (64, 16384))
-        # normal geometry still supported
-        m2 = jacobi_module(128, 256, FIVE_POINT)
-        op2 = pallas_multisweep.find_sweep_apply(m2, "op")
-        assert pallas_backend.window_supported(op2, (128, 256))
-
-
-class TestPeriodicWindow:
-    """Round 4: periodic whole-grid operators take the ONE-LEVEL window
-    (ring fetch + wrapped edge DMAs); K fused torus sweeps must equal K
-    NumPy roll-oracle sweeps, wrap across both window AND array edges."""
-
-    def test_periodic_window_matches_oracle(self, monkeypatch):
+    def test_torus_dsl(self):
         import neptune_tpu as ntp
-        from neptune_tpu.config import config
-        from neptune_tpu.lowering import pallas_multisweep as MS
-
-        config.pallas_interpret = True
-        try:
-            ntp.reset_context()
-            n = 256  # large enough that the resident variant won't claim it
-
-            @ntp.linear_op_def(
-                bounds=([0, 0], [n, 128]), dtype="float32", periodic=True,
-                name="torus_sw",
-            )
-            def torus_sw(u):
-                return u[0, 0] + 0.1 * (
-                    u[-1, 0] + u[1, 0] + u[0, -1] + u[0, 1] - 4.0 * u[0, 0]
-                )
-
-            cm = ntp.get_context().compiled()
-            # force the window variant even if the grid would fit VMEM
-            monkeypatch.setattr(MS, "_RESIDENT_BYTES", 0)
-            k = 4
-            plan = MS.sweeps_plan(cm.module, "torus_sw", k)
-            assert plan is not None and not plan.get("two_level")
-
-            x = np.random.default_rng(0).standard_normal((n, 128)).astype(
-                np.float32
-            )
-            got = np.asarray(
-                MS.execute_sweeps(
-                    cm.module, "torus_sw", x, (), k, interpret=True
-                )
-            )
-            want = x.astype(np.float64)
-            for _ in range(k):
-                lap = (np.roll(want, 1, 0) + np.roll(want, -1, 0)
-                       + np.roll(want, 1, 1) + np.roll(want, -1, 1)
-                       - 4.0 * want)
-                want = want + 0.1 * lap
-            np.testing.assert_allclose(got, want, atol=1e-4)
-        finally:
-            config.pallas_interpret = False
-
-    def test_periodic_interior_bounds_rejected(self):
-        import neptune_tpu as ntp
-        from neptune_tpu.lowering import pallas_multisweep as MS
 
         ntp.reset_context()
         n = 256
 
         @ntp.linear_op_def(
-            bounds=([0, 0], [n, 128]), interior=([1, 1], [n - 1, 127]),
-            dtype="float32", periodic=True, name="torus_masked",
+            bounds=([0, 0], [n, 128]), dtype="float32", periodic=True,
+            name="torus_sw",
         )
-        def torus_masked(u):
-            return 0.25 * (u[-1, 0] + u[1, 0] + u[0, -1] + u[0, 1])
+        def torus_sw(u):
+            return u[0, 0] + 0.1 * (
+                u[-1, 0] + u[1, 0] + u[0, -1] + u[0, 1] - 4.0 * u[0, 0]
+            )
 
-        cm = ntp.get_context().compiled()
-        assert MS.sweeps_plan(cm.module, "torus_masked", 4) is None
+        x = np.random.default_rng(0).standard_normal((n, 128)).astype(
+            np.float32
+        )
+        got = np.asarray(ntp.sweeps(torus_sw, 4)(x))
+        want = x.astype(np.float64)
+        for _ in range(4):
+            lap = (np.roll(want, 1, 0) + np.roll(want, -1, 0)
+                   + np.roll(want, 1, 1) + np.roll(want, -1, 1)
+                   - 4.0 * want)
+            want = want + 0.1 * lap
+        np.testing.assert_allclose(got, want, atol=1e-4)
+
+    def test_periodic_interior_bounds(self):
+        n = 256
+        offs = [((-1, 0), .25), ((1, 0), .25), ((0, -1), .25), ((0, 1), .25)]
+        m = jacobi_module(n, 128, offs, periodic=True,
+                          interior=Bounds.of((1, 1), (n - 1, 127)))
+        run_oracle(m, (n, 128), 4, offs, periodic=True,
+                   box=np_oracle.interior((n, 128), 1))

@@ -1,6 +1,6 @@
 """Multi-device tests on the 8-device virtual CPU mesh (conftest forces
---xla_force_host_platform_device_count=8) — the TPU answer to multi-node
-testing without a cluster (SURVEY.md §4)."""
+--xla_force_host_platform_device_count=8) — multi-node testing without a
+cluster (SURVEY.md §4)."""
 
 import jax
 import jax.numpy as jnp
@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 import neptune_tpu as ntp
+import np_oracle
 from neptune_tpu.parallel import (
     GridMesh,
     halo_pad_local,
@@ -204,16 +205,15 @@ class TestShardMapHalo:
         )
         np.testing.assert_allclose(out, expect, atol=1e-13)
 
-    def test_gspmd_view_cached_across_calls(self):
-        # review: every sharded_opdef call rebuilt the jnp view, discarding
-        # the opdef/structure caches (re-jit per solve)
-        from neptune_tpu.parallel.sharded import _gspmd_view
-
+    def test_sharded_opdef_reuses_opdef_cache(self):
+        # review: every sharded_opdef call used to rebuild a module view,
+        # discarding the opdef/structure caches (re-jit per solve)
         make_lap2d()
         cmp = ntp.get_context().compiled()
-        v1 = _gspmd_view(cmp)
-        v2 = _gspmd_view(cmp)
-        assert v1 is v2
+        gm = GridMesh((8, 1), ("x", "y"))
+        f1 = sharded_opdef(cmp, "lap2d", gm)
+        f2 = sharded_opdef(cmp, "lap2d", gm)
+        assert f1.__wrapped__ is f2.__wrapped__ is cmp.opdef("lap2d")
 
 
 class TestShardMapOpdef:
@@ -319,34 +319,30 @@ class TestShardMapOpdef:
         np.testing.assert_allclose(sols[(8, 1)], sols[(4, 2)], atol=2e-13)
         np.testing.assert_allclose(sols[(4, 2)], sols[(2, 4)], atol=2e-13)
 
-    def test_shardmap_opdef_pallas_window(self):
-        # the Pallas-local multi-chip path (interpret mode): each shard runs
-        # the slab-blocked window kernel with traced global coordinates
-        from neptune_tpu.config import config
+    def test_shardmap_opdef_f32_2d_mesh(self):
+        # f32 5-pt Laplacian on a 2-axis mesh vs the NumPy stencil
         from neptune_tpu.parallel import shardmap_opdef
 
-        config.pallas_interpret = True
-        try:
-            ntp.reset_context()
+        ntp.reset_context()
 
-            @ntp.linear_op_def(
-                bounds=([0, 0], [128, 256]), interior=([1, 1], [127, 255]),
-                dtype="float32", name="lap_p",
-            )
-            def lap_p(u):
-                return 4.0 * u[0, 0] - u[-1, 0] - u[1, 0] - u[0, -1] - u[0, 1]
+        @ntp.linear_op_def(
+            bounds=([0, 0], [128, 256]), interior=([1, 1], [127, 255]),
+            dtype="float32", name="lap_p",
+        )
+        def lap_p(u):
+            return 4.0 * u[0, 0] - u[-1, 0] - u[1, 0] - u[0, -1] - u[0, 1]
 
-            gm = GridMesh((4, 2), ("x", "y"))
-            cm = ntp.get_context().compiled()
-            f = jax.jit(shardmap_opdef(cm, "lap_p", gm, backend="pallas"))
-            x = np.random.default_rng(11).standard_normal((128, 256)).astype(
-                np.float32
-            )
-            out = np.asarray(f(gm.shard(jnp.asarray(x))))
-            ref = np.asarray(cm.opdef("lap_p")(x))
-            np.testing.assert_allclose(out, ref, atol=1e-5)
-        finally:
-            config.pallas_interpret = False
+        gm = GridMesh((4, 2), ("x", "y"))
+        cm = ntp.get_context().compiled()
+        f = jax.jit(shardmap_opdef(cm, "lap_p", gm))
+        x = np.random.default_rng(11).standard_normal((128, 256)).astype(
+            np.float32
+        )
+        out = np.asarray(f(gm.shard(jnp.asarray(x))))
+        ref = np_oracle.linear(
+            x, np_oracle.LAP5, np_oracle.interior(x.shape, 1)
+        )
+        np.testing.assert_allclose(out, ref, atol=1e-5)
 
 
 class TestShardmapSweeps:
@@ -428,17 +424,12 @@ class TestShardmapSweeps:
         np.testing.assert_allclose(got, want, atol=1e-11)
 
     @pytest.mark.parametrize("k", [1, 2])
-    def test_window_core_sweep_interpret(self, monkeypatch, k):
-        # the Pallas main sweep in interpret mode (preferred at any size):
-        # k=1 exercises the per-sweep window kernel, k=2 the K-fused
-        # multisweep window kernel with traced coords
-        from neptune_tpu.config import config
+    def test_f32_core_sweep(self, k):
+        # f32 K sweeps per exchange vs K NumPy 5-pt sweeps
         from neptune_tpu.parallel import shardmap_sweeps
 
-        monkeypatch.setattr(config, "pallas_interpret", True)
         n = 128
 
-        # f32: the window kernel supports float32/bfloat16 only
         @ntp.linear_op_def(
             bounds=([0, 0], [n, n]),
             interior=([1, 1], [n - 1, n - 1]),
@@ -452,8 +443,10 @@ class TestShardmapSweeps:
         fk = shardmap_sweeps(cm, "lap2d", gm, k)
         x = np.random.default_rng(9).standard_normal((n, n)).astype(np.float32)
         got = np.asarray(jax.jit(fk)(gm.shard(jnp.asarray(x))))
-        want = self._oracle(cm, "lap2d", x, k)
-        np.testing.assert_allclose(got, want, atol=1e-4)
+        want = np_oracle.sweeps(
+            x, np_oracle.LAP5, k, np_oracle.interior(x.shape, 1)
+        )
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
     def test_rejects_too_deep_and_composite(self):
         from neptune_tpu.parallel import shardmap_sweeps

@@ -1,14 +1,13 @@
 """Matmul-precision pinning in the CA solver family.
 
-TPU's default-precision f32 matmul multiplies in bf16 on the MXU (~8
-mantissa bits). The CA solvers run their recurrences in coefficient space
-through Gram matrices — at bf16 multiply precision the residual estimates
-stall orders above tol (observed on v5e: monomial CA-BiCGStab stuck at
-3e-4 vs tol 1e-4; Chebyshev-basis CA-BiCGStab NaN). Every
+A default-precision f32 matmul may multiply at reduced precision (TF32 on
+NVIDIA tensor cores). The CA solvers run their recurrences in coefficient
+space through Gram matrices — at reduced multiply precision the residual
+estimates stall orders above tol, or the Chebyshev basis NaNs. Every
 Gram/coefficient/recombination matmul therefore pins
 `precision="highest"` (`ca_common._mm`).
 
-The failure only reproduces on real TPU hardware, so these tests guard
+The CPU is always f32-exact, so these tests guard
 the fix structurally: trace each sharded solver and assert every
 `dot_general` equation in the jaxpr carries HIGHEST precision.
 """

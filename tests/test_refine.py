@@ -1,7 +1,6 @@
 """Mixed-precision iterative refinement tests (solvers.refine +
 passes.retype): f64 accuracy from f32 inner solves — the answer to SURVEY.md
-§7 hard part (e) (TPU f64 is emulated/slow). Measured on v5e: ~170x faster
-than pure-f64 CG at equal-or-better residual."""
+§7 hard part (e) (f64 is slower than f32 on most accelerators)."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -431,3 +431,103 @@ class TestDirichletLift:
 
         H = ntp.assemble_matrix(full)
         assert H.ring_lift(jnp.ones((16, 16))) is None
+
+
+class TestCgSolveLinear:
+    """solve_linear(solver="cg") on f32 2-D Poisson operators at 64²,
+    plain, Jacobi-preconditioned and composite, with the true residual
+    recomputed by the NumPy stencil."""
+
+    @staticmethod
+    def _poisson(n, name):
+        import neptune_tpu as ntp
+
+        @ntp.linear_op_def(
+            bounds=([0, 0], [n, n]), interior=([1, 1], [n - 1, n - 1]),
+            dtype="float32", name=name,
+        )
+        def poisson(u):
+            return 4.0 * u[0, 0] - u[-1, 0] - u[1, 0] - u[0, -1] - u[0, 1]
+
+        return poisson
+
+    @pytest.mark.parametrize("precond", ["none", "jacobi"])
+    def test_poisson_f32(self, precond):
+        import neptune_tpu as ntp
+        import np_oracle
+
+        ntp.reset_context()
+        n = 64
+        H = ntp.assemble_matrix(self._poisson(n, f"p_{precond}"))
+        b = np.random.default_rng(3).standard_normal((n, n)).astype(np.float32)
+        x = np.asarray(ntp.solve_linear(
+            H, b, solver="cg", tol=1e-5, max_iters=2000, precond=precond
+        ))
+        r = b - np_oracle.linear(x, np_oracle.LAP5, np_oracle.interior((n, n), 1))
+        assert np.linalg.norm(r) <= 1e-4 * np.linalg.norm(b)
+        ntp.reset_context()
+
+    def test_same_iterations_as_solvers_cg(self):
+        # solve_linear's CG is solvers.cg on the opdef: same recursion, same
+        # iteration count, same iterate
+        import neptune_tpu as ntp
+
+        ntp.reset_context()
+        self._poisson(64, "poisson")
+        cm = ntp.get_context().compiled()
+        mv = cm.opdef("poisson")
+        # zero boundary ring: no Dirichlet lift, so the recursions coincide
+        bh = np.zeros((64, 64), np.float32)
+        bh[1:-1, 1:-1] = np.random.default_rng(0).standard_normal((62, 62))
+        b = jnp.asarray(bh)
+        x1, info = cg(mv, b, tol=1e-5, maxiter=2000)
+        x2 = ntp.solve_linear(
+            ntp.assemble_matrix("poisson"), b, solver="cg", tol=1e-5,
+            max_iters=int(info.iters),
+        )
+        assert bool(info.converged)
+        np.testing.assert_allclose(np.asarray(x2), np.asarray(x1), atol=1e-4)
+        ntp.reset_context()
+
+    def test_composite_operator(self):
+        # ac_A-style: x + 0.1 * lap_in(x), lap_in another linear opdef
+        import neptune_tpu as ntp
+        import np_oracle
+        from neptune_tpu.ir import F32
+
+        ntp.reset_context()
+        n = 64
+
+        @ntp.linear_op_def(
+            bounds=([0, 0], [n, n]), interior=([1, 1], [n - 1, n - 1]),
+            dtype="float32", name="lap_in",
+        )
+        def lap_in(u):
+            return 4.0 * u[0, 0] - u[-1, 0] - u[1, 0] - u[0, -1] - u[0, 1]
+
+        ctx = ntp.get_context()
+        bld = ctx.builder
+        tt = TempType("float32", Bounds.of([0, 0], [n, n]))
+        fn = bld.make_opdef("shifted", "linear_opdef", [tt], [tt])
+        bld.push_block(fn.body)
+        lapx = bld.apply_linear("lap_in", [fn.body.args[0]])
+        op, body = bld.start_apply([fn.body.args[0], lapx], tt.bounds)
+        bld.push_block(body)
+        x0 = bld.access(body.args[2], [0, 0])
+        l0 = bld.access(body.args[3], [0, 0])
+        bld.yield_(bld.add(x0, bld.mul(bld.constant(0.1, F32), l0)))
+        bld.pop_block()
+        bld.return_([bld.finish_apply(op)])
+        bld.pop_block()
+        ctx.bump()
+
+        b = np.random.default_rng(2).standard_normal((n, n)).astype(np.float32)
+        x = np.asarray(ntp.solve_linear(
+            ntp.assemble_matrix("shifted"), b, solver="cg", tol=1e-5,
+            max_iters=2000,
+        ))
+        ax = x + 0.1 * np_oracle.linear(
+            x, np_oracle.LAP5, np_oracle.interior((n, n), 1)
+        )
+        assert np.linalg.norm(b - ax) <= 1e-4 * np.linalg.norm(b)
+        ntp.reset_context()
